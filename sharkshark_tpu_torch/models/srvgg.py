@@ -1,0 +1,124 @@
+"""SRVGGNetCompact, the production RealESRGAN upscaler core (counterpart
+of the JAX package's models/srvgg.py).
+
+A stack of 3x3 convs with PReLU, a (scale^2 * out_ch)-channel tail conv,
+PixelShuffle, plus a nearest-upsampled residual of the input (reference
+src/upscale/model/realesrgan/factory.py:18-82).  `realesr-general-x4v3`
+(num_conv=32, num_feat=64) is the live pipeline's model.  Parameters are
+a plain dict of tensors: {"convs": [{"w": HWIO, "b"}], "acts":
+[{"alpha"}], "tail": {"w", "b"}}, the JAX package's pytree layout.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..ops import conv2d, pixel_shuffle, prelu, resize
+from ..ops import fused_epilogue as fe
+from .torch_import import conv_from_torch, prelu_from_torch, to_tensors
+
+__all__ = [
+    "SRVGGConfig", "GENERAL_X4V3", "init_params", "apply",
+    "apply_down_rational", "from_torch", "from_jax",
+]
+
+
+class SRVGGConfig(NamedTuple):
+    num_in_ch: int = 3
+    num_out_ch: int = 3
+    num_feat: int = 64
+    num_conv: int = 32       # 32 = general-x4v3 (S), 16 = animevideov3 (XS)
+    upscale: int = 4
+    act_type: str = "prelu"  # 'relu' | 'prelu' | 'leakyrelu'
+
+
+GENERAL_X4V3 = SRVGGConfig(num_conv=32)
+
+
+def init_params(
+    generator: torch.Generator,
+    cfg: SRVGGConfig = GENERAL_X4V3,
+    device: str | torch.device = "cpu",
+) -> dict:
+    """He-normal random weights drawn from `generator` (on the CPU, then
+    moved to `device`)."""
+    n_layers = cfg.num_conv + 1
+
+    def conv(i, o):
+        w = torch.randn((3, 3, i, o), generator=generator) * np.sqrt(2.0 / (i * 9))
+        return {"w": w, "b": torch.zeros(o)}
+
+    convs = [conv(cfg.num_in_ch, cfg.num_feat)]
+    convs += [conv(cfg.num_feat, cfg.num_feat) for _ in range(1, n_layers)]
+    tail = conv(cfg.num_feat, cfg.num_out_ch * cfg.upscale**2)
+    acts = [{"alpha": torch.full((cfg.num_feat,), 0.25)} for _ in range(n_layers)]
+    return to_tensors({"convs": convs, "acts": acts, "tail": tail}, device)
+
+
+def _act(x: torch.Tensor, p: dict, act_type: str) -> torch.Tensor:
+    if act_type == "prelu":
+        return prelu(x, p["alpha"])
+    if act_type == "relu":
+        return torch.clamp(x, min=0)
+    if act_type == "leakyrelu":
+        return torch.where(x >= 0, x, x * 0.1)
+    raise ValueError(act_type)
+
+
+def _body(params: dict, x: torch.Tensor, cfg: SRVGGConfig) -> torch.Tensor:
+    y = x
+    for conv_p, act_p in zip(params["convs"], params["acts"]):
+        y = _act(conv2d(y, conv_p["w"], conv_p.get("b"), padding=1), act_p, cfg.act_type)
+    return conv2d(y, params["tail"]["w"], params["tail"].get("b"), padding=1)
+
+
+def apply(params: dict, x: torch.Tensor, *, cfg: SRVGGConfig = GENERAL_X4V3) -> torch.Tensor:
+    """x: (N, H, W, in_ch) in [0,1] -> (N, H*s, W*s, out_ch).  The nearest
+    residual is added in pre-shuffle channel space (nearest_s(x) ==
+    pixel_shuffle(repeat(x, s^2)) exactly), so one HR tensor is made."""
+    y = _body(params, x, cfg)
+    if cfg.num_in_ch == cfg.num_out_ch:
+        y = y + x.to(y.dtype).repeat_interleave(cfg.upscale**2, dim=-1)
+        return pixel_shuffle(y, cfg.upscale)
+    y = pixel_shuffle(y, cfg.upscale)
+    h, w = x.shape[-3], x.shape[-2]
+    return y + resize(x, (h * cfg.upscale, w * cfg.upscale), "nearest").to(y.dtype)
+
+
+def apply_down_rational(
+    params: dict, x: torch.Tensor, num: int, den: int, *,
+    cfg: SRVGGConfig = GENERAL_X4V3,
+) -> torch.Tensor:
+    """Fused epilogue: bicubic-(num/den)-downscale of apply(params, x)
+    without making the 4x image (ops/fused_epilogue.py): exact in the
+    interior, <=1-block edge-replicated borders."""
+    if cfg.upscale != 4 or cfg.num_in_ch != cfg.num_out_ch:
+        raise ValueError(f"the fused epilogue needs a 4x model with in_ch == out_ch, got {cfg}")
+    y = _body(params, x, cfg)
+    out = fe.ps4_bicubic_down_rational(y, num, den)
+    return out + fe.nearest4_bicubic_down_rational(x, num, den).to(out.dtype)
+
+
+def from_torch(
+    sd: dict[str, np.ndarray],
+    cfg: SRVGGConfig = GENERAL_X4V3,
+    device: str | torch.device = "cpu",
+) -> dict:
+    """Reference module list: body.[conv,act]*(num_conv+1) + tail conv at
+    body.{2*(num_conv+1)} (factory.py:42-69)."""
+    n_layers = cfg.num_conv + 1
+    convs = [conv_from_torch(sd, f"body.{2 * i}.") for i in range(n_layers)]
+    acts = [
+        prelu_from_torch(sd, f"body.{2 * i + 1}.") if cfg.act_type == "prelu" else {}
+        for i in range(n_layers)
+    ]
+    tail = conv_from_torch(sd, f"body.{2 * n_layers}.")
+    return to_tensors({"convs": convs, "acts": acts, "tail": tail}, device)
+
+
+def from_jax(np_params: dict, device: str | torch.device = "cpu") -> dict:
+    """The JAX package's SRVGG pytree (leaves as numpy arrays) as tensors."""
+    return to_tensors(np_params, device)

@@ -1,0 +1,200 @@
+"""The port's upscale steps and EsrganUpscalerService against the JAX
+package's, on the CPU in float32 at tiny sizes, with the same weights.
+
+Tolerance: uint8 outputs may differ by 1, where a float32 value that
+differs in its last bits (sums in another order) falls on the other side
+of an integer step of the truncating cast."""
+
+import inspect
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sharkshark_tpu.models import bsvd as jbsvd
+from sharkshark_tpu.models import srvgg as jsrvgg
+from sharkshark_tpu.runtime import EOF as JEOF
+from sharkshark_tpu.upscale import steps as jsteps
+from sharkshark_tpu.upscale.service import EsrganUpscalerService as JService
+from sharkshark_tpu.upscale.service import UpscalerQueueEntry as JEntry
+from sharkshark_tpu_torch.models import bsvd, srvgg
+from sharkshark_tpu_torch.runtime import EOF
+from sharkshark_tpu_torch.upscale import steps
+from sharkshark_tpu_torch.upscale.service import EsrganUpscalerService, UpscalerQueueEntry
+
+TINY_SRVGG_J = jsrvgg.SRVGGConfig(num_feat=16, num_conv=2)
+TINY_SRVGG = srvgg.SRVGGConfig(num_feat=16, num_conv=2)
+TINY_BSVD_J = jbsvd.BSVDConfig(chns=(8, 16, 24))
+TINY_BSVD = bsvd.BSVDConfig(chns=(8, 16, 24))
+
+
+def _np(tree):
+    return jax.tree.map(lambda t: t.numpy(), tree)
+
+
+def _assert_u8_close(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape and got.dtype == want.dtype == np.uint8
+    assert np.abs(got.astype(np.int16) - want.astype(np.int16)).max() <= 1
+
+
+@pytest.fixture(scope="module")
+def params():
+    """Random weights from the port's seeded init, handed to the JAX
+    package as numpy (its pytree layout is the same)."""
+    tp = {
+        "sr": srvgg.init_params(torch.Generator().manual_seed(0), TINY_SRVGG),
+        "denoise": bsvd.init_params(torch.Generator().manual_seed(1), TINY_BSVD),
+    }
+    return _np(tp), tp
+
+
+def _specs(lr_shape, out_shape):
+    kw = dict(lr_shape=lr_shape, output_shape=out_shape, denoise_rate=0.75)
+    return (jsteps.UpscaleSpec(compute_dtype=jnp.float32, **kw),
+            steps.UpscaleSpec(compute_dtype=torch.float32, **kw))
+
+
+def _sr_applies():
+    def j_apply(p, x):
+        return jsrvgg.apply_down_rational(p, x, 2, 1, cfg=TINY_SRVGG_J)
+
+    def t_apply(p, x):
+        return srvgg.apply_down_rational(p, x, 2, 1, cfg=TINY_SRVGG)
+
+    return j_apply, t_apply
+
+
+def test_denoise_steps_match_jax(params):
+    """upscale_batch_denoise over cold and warm chunks, then the EOF
+    flush, at an LR size that is not a multiple of 4 (pad + crop)."""
+    jp, tp = params
+    jspec, tspec = _specs((22, 38), (44, 76))
+    j_apply, t_apply = _sr_applies()
+    j_step = jax.jit(jsteps.upscale_batch_denoise, static_argnums=(0, 4, 5, 6))
+    j_flush = jax.jit(jsteps.flush_batch_denoise, static_argnums=(0, 5, 6))
+    js = jsteps.init_denoise_state(1, jspec, TINY_BSVD_J)
+    ts = steps.init_denoise_state(1, tspec, TINY_BSVD)
+    frames = np.random.default_rng(0).integers(0, 256, (20, 44, 76, 3), dtype=np.uint8)
+    for i in range(0, 20, 4):
+        warm = i >= bsvd.SHIFT_NUM
+        jo, js = j_step(j_apply, jp, js, jnp.asarray(frames[i : i + 4]), jspec, TINY_BSVD_J, warm)
+        to, ts = steps.upscale_batch_denoise(t_apply, tp, ts, torch.from_numpy(frames[i : i + 4]),
+                                             tspec, TINY_BSVD, warm=warm)
+        assert to.shape == (4, 44, 76, 3)
+        _assert_u8_close(to, jo)
+    js = jbsvd.ring_to_fifo_state(js, TINY_BSVD_J)
+    ts = bsvd.ring_to_fifo_state(ts, TINY_BSVD)
+    for i in range(0, bsvd.SHIFT_NUM, 4):
+        tail = frames[i : i + 4]
+        jo, js = j_flush(j_apply, jp, js, jnp.asarray(tail), jnp.asarray(20, jnp.int32),
+                         jspec, TINY_BSVD_J)
+        to, ts = steps.flush_batch_denoise(t_apply, tp, ts, torch.from_numpy(tail), 20,
+                                           tspec, TINY_BSVD)
+        _assert_u8_close(to, jo)
+    assert ts["t"] == int(js["t"]) == 36
+
+
+def test_sr_sub_batch_and_multi_match_jax(params):
+    """A T=8 micro-batch with the SR tail in sub-batches of 4, and the
+    no-denoise step upscale_multi (local color match active at this HR
+    size)."""
+    jp, tp = params
+    jspec, tspec = _specs((36, 64), (72, 128))
+    j_apply, t_apply = _sr_applies()
+    frames = np.random.default_rng(1).integers(0, 256, (8, 72, 128, 3), dtype=np.uint8)
+    jo, _ = jax.jit(jsteps.upscale_batch_denoise, static_argnums=(0, 4, 5, 6, 7))(
+        j_apply, jp, jsteps.init_denoise_state(1, jspec, TINY_BSVD_J), jnp.asarray(frames),
+        jspec, TINY_BSVD_J, False, 4)
+    to, _ = steps.upscale_batch_denoise(
+        t_apply, tp, steps.init_denoise_state(1, tspec, TINY_BSVD), torch.from_numpy(frames),
+        tspec, TINY_BSVD, sr_sub_batch=4)
+    _assert_u8_close(to, jo)
+    jo = jax.jit(jsteps.upscale_multi, static_argnums=(0, 3))(
+        j_apply, jp["sr"], jnp.asarray(frames[:2]), jspec)
+    to = steps.upscale_multi(t_apply, tp["sr"], torch.from_numpy(frames[:2]), tspec)
+    _assert_u8_close(to, jo)
+
+
+def _conv_sd(prefix, i, o, rng):
+    return {
+        prefix + "weight": (rng.standard_normal((o, i, 3, 3)) * np.sqrt(2.0 / (9 * i))).astype(np.float32),
+        prefix + "bias": (rng.standard_normal(o) * 0.01).astype(np.float32),
+    }
+
+
+def _write_tiny_weights(tmp_path):
+    """Tiny SRVGG and BSVD checkpoints in the reference key layout, so
+    both services load the same weights through their own from_torch."""
+    rng = np.random.default_rng(2)
+    sd = {}
+    n = TINY_SRVGG.num_conv + 1
+    for i in range(n):
+        sd.update(_conv_sd(f"body.{2 * i}.", 3 if i == 0 else 16, 16, rng))
+        sd[f"body.{2 * i + 1}.weight"] = np.full(16, 0.25, np.float32)
+    sd.update(_conv_sd(f"body.{2 * n}.", 16, 48, rng))
+    sr_path = tmp_path / "srvgg-tiny.pth"
+    torch.save({"params": {k: torch.from_numpy(v) for k, v in sd.items()}}, sr_path)
+
+    c0, c1, c2 = TINY_BSVD.chns
+    sd = {}
+    for net, (cin, cout) in enumerate([(4, TINY_BSVD.mid_ch), (TINY_BSVD.mid_ch, 3)]):
+        p = f"base_model.nets_list.{net}."
+        for name, i, o in [
+            ("inc.convblock.0.", cin, TINY_BSVD.interm_ch), ("inc.convblock.3.", TINY_BSVD.interm_ch, c0),
+            ("downc0.convblock.0.", c0, c1), ("downc1.convblock.0.", c1, c2),
+            ("upc2.convblock.1.", c2, 4 * c1), ("upc1.convblock.1.", c1, 4 * c0),
+            ("outc.convblock.0.", c0, c0), ("outc.convblock.3.", c0, cout),
+        ]:
+            sd.update(_conv_sd(p + name, i, o, rng))
+        for mem, c in [("downc0.convblock.3.", c1), ("downc1.convblock.3.", c2),
+                       ("upc2.convblock.0.", c2), ("upc1.convblock.0.", c1)]:
+            for conv in ("c1", "c2"):
+                sd.update(_conv_sd(f"{p}{mem}{conv}.net.", c, c, rng))
+    den_path = tmp_path / "bsvd-tiny.pth"
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, den_path)
+    return str(sr_path), str(den_path)
+
+
+def _drive(svc, entry_cls, eof_cls, jobs):
+    """start -> push_job per micro-batch -> push_eof, collecting through
+    on_queue as the live pipeline does."""
+    out = []
+    svc.on_queue = out.append
+    svc.start()
+    for i, frames in enumerate(jobs):
+        svc.push_job(entry_cls(frames=frames, step=i), timeout=60)
+    svc.push_eof()
+    assert svc.wait_eof(timeout=300)
+    svc.join(timeout=60)
+    assert not svc.is_alive and svc._error is None, svc._error
+    assert isinstance(out[-1], eof_cls)
+    return np.concatenate([np.asarray(e.frames) for e in out[:-1]])
+
+
+def test_service_matches_jax_service(tmp_path):
+    sr_w, den_w = _write_tiny_weights(tmp_path)
+    kw = dict(lr_level=0, denoising=True, denoise_rate=0.75, batch_size=4,
+              output_shape=(48, 80), weights=sr_w, denoise_weights=den_w)
+    jsvc = JService(compute_dtype=jnp.float32, srvgg_cfg=TINY_SRVGG_J, bsvd_cfg=TINY_BSVD_J, **kw)
+    tsvc = EsrganUpscalerService(compute_dtype=torch.float32, srvgg_cfg=TINY_SRVGG,
+                                 bsvd_cfg=TINY_BSVD, device="cpu", **kw)
+    jsvc.lr_shape = tsvc.lr_shape = (24, 40)
+    rng = np.random.default_rng(3)
+    # 5 full micro-batches (cold, then warm from frame 16) and a tail of 3
+    jobs = [rng.integers(0, 256, (n, 24, 40, 3), dtype=np.uint8) for n in (4, 4, 4, 4, 4, 3)]
+    got = _drive(tsvc, UpscalerQueueEntry, EOF, jobs)
+    want = _drive(jsvc, JEntry, JEOF, jobs)
+    # 23 live frames + the 15 real frames among the last 16 fed
+    assert got.shape == (23 + 15, 48, 80, 3)
+    _assert_u8_close(got, want)
+
+
+def test_service_default_device_is_cuda():
+    params = inspect.signature(EsrganUpscalerService).parameters
+    assert params["device"].default == "cuda"
+    assert params["compute_dtype"].default == torch.bfloat16
+    with pytest.raises(ValueError, match="not ported"):
+        EsrganUpscalerService(upscaler_model="fsrcnn", device="cpu")
