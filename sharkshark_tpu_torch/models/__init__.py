@@ -1,3 +1,3 @@
-from . import bsvd, srvgg, torch_import
+from . import bsvd, egvsr, srvgg, torch_import
 
-__all__ = ["bsvd", "srvgg", "torch_import"]
+__all__ = ["bsvd", "egvsr", "srvgg", "torch_import"]

@@ -52,12 +52,21 @@ def _reflect_pad_hw(x: torch.Tensor, p: int) -> torch.Tensor:
     return x
 
 
+@lru_cache(maxsize=None)
+def _device_kernel(kernel_size: int, sigma: float, c: int, device: torch.device, dtype: torch.dtype):
+    """The depthwise gaussian weights (c, 1, k, k) on `device`, made once: a
+    copy from host memory on every call would make the host wait for the
+    device's queue to drain."""
+    k = torch.from_numpy(gaussian_kernel_2d(kernel_size, sigma)).to(device, dtype)
+    return k.expand(c, 1, kernel_size, kernel_size).contiguous()
+
+
 def blur(x: torch.Tensor, kernel_size: int = 3, sigma: float = 0.5) -> torch.Tensor:
     """Depthwise gaussian blur with reflect padding (NHWC)."""
     n, h, w, c = x.shape
-    k = torch.from_numpy(gaussian_kernel_2d(kernel_size, sigma)).to(x.device, x.dtype)
+    k = _device_kernel(kernel_size, sigma, c, x.device, x.dtype)
     xp = _reflect_pad_hw(x, kernel_size // 2).permute(0, 3, 1, 2)
-    y = F.conv2d(xp, k.expand(c, 1, kernel_size, kernel_size).contiguous(), groups=c)
+    y = F.conv2d(xp, k, groups=c)
     return y.permute(0, 2, 3, 1)
 
 

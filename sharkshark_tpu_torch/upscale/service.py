@@ -8,6 +8,9 @@
   FsrcnnUpscalerService, fsrcnn_upscaler.py:86-326, which runs
   RealESRGAN-SRVGG), with the BSVD denoiser on micro-batches and its
   16-frame lookahead drained at end of stream.
+- EgvsrUpscalerService: the frame-recurrent EGVSR path (reference
+  egvsr_upscaler.py:145-212), one FRNet step per frame (or one batched
+  chunk per micro-batch), its HR warp through the K3 kernel.
 
 On the GPU a dispatch enqueues the step on the current CUDA stream, then
 a non_blocking copy of the result into pinned host memory and an event;
@@ -27,19 +30,23 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..models import bsvd, srvgg, torch_import
+from ..models import bsvd, egvsr, srvgg, torch_import
 from ..runtime import BaseService, Profiler
 from ..utils import get_logger, resolve_device
 from .levels import LR_LEVELS
 from .steps import (
     UpscaleSpec,
+    egvsr_upscale_chunk,
+    egvsr_upscale_step,
     flush_batch_denoise,
     init_denoise_state,
     upscale_batch_denoise,
     upscale_multi,
 )
 
-__all__ = ["UpscalerQueueEntry", "BaseUpscalerService", "EsrganUpscalerService"]
+__all__ = [
+    "UpscalerQueueEntry", "BaseUpscalerService", "EsrganUpscalerService", "EgvsrUpscalerService",
+]
 
 log = get_logger("upscale.service")
 
@@ -74,6 +81,15 @@ class _HostCopy:
         if self.event is not None:
             self.event.synchronize()
         return self.host.numpy()
+
+
+def _to_device(device: torch.device, frames: np.ndarray) -> torch.Tensor:
+    """Upload frames without waiting: a copy from pinned host memory is
+    queued on the stream like any kernel."""
+    host = torch.from_numpy(np.ascontiguousarray(frames))
+    if device.type != "cuda":
+        return host
+    return host.pin_memory().to(device, non_blocking=True)
 
 
 class BaseUpscalerService(BaseService):
@@ -289,14 +305,6 @@ class EsrganUpscalerService(BaseUpscalerService):
                  self.upscaler_model, self.denoising, self.device)
         self._initialized = True
 
-    def _to_device(self, frames: np.ndarray) -> torch.Tensor:
-        """Upload frames without waiting: a copy from pinned host memory
-        is queued on the stream like any kernel."""
-        host = torch.from_numpy(np.ascontiguousarray(frames))
-        if self.device.type != "cuda":
-            return host
-        return host.pin_memory().to(self.device, non_blocking=True)
-
     @torch.inference_mode()
     def proc_eof(self):
         """Drain the BSVD lookahead at end of stream: the last SHIFT_NUM
@@ -325,7 +333,7 @@ class EsrganUpscalerService(BaseUpscalerService):
         for i in range(0, total, bs):
             out, self._den_state = flush_batch_denoise(
                 self._sr_apply, self._params, self._den_state,
-                self._to_device(tail[i : i + bs]), self._frames_seen, self.spec, self.bsvd_cfg,
+                _to_device(self.device, tail[i : i + bs]), self._frames_seen, self.spec, self.bsvd_cfg,
             )
             outs.append(_HostCopy(out))
         drained = np.concatenate([o.numpy() for o in outs])[: bsvd.SHIFT_NUM][bsvd.SHIFT_NUM - k :]
@@ -356,7 +364,7 @@ class EsrganUpscalerService(BaseUpscalerService):
                 pad = np.repeat(frames[-1:], self.batch_size - n, axis=0)
                 frames = np.concatenate([frames, pad], axis=0)
             out, self._den_state = upscale_batch_denoise(
-                self._sr_apply, self._params, self._den_state, self._to_device(frames),
+                self._sr_apply, self._params, self._den_state, _to_device(self.device, frames),
                 self.spec, self.bsvd_cfg,
                 # steady state: once SHIFT_NUM frames are in, every warm-up
                 # window mask is an identity
@@ -375,5 +383,92 @@ class EsrganUpscalerService(BaseUpscalerService):
         if n < self.batch_size:
             pad = np.repeat(frames[-1:], self.batch_size - n, axis=0)
             frames = np.concatenate([frames, pad], axis=0)
-        out = upscale_multi(self._sr_apply, self._sr_params, self._to_device(frames), self.spec)
+        out = upscale_multi(self._sr_apply, self._sr_params, _to_device(self.device, frames), self.spec)
         return _HostCopy(out), n
+
+
+class EgvsrUpscalerService(BaseUpscalerService):
+    """Frame-recurrent EGVSR service (reference egvsr_upscaler.py:145-212).
+
+    device: 'cuda' (default) or 'cpu'; a CUDA device on a host without
+    CUDA raises here, at construction.  cut_threshold: the scene-cut skip
+    (egvsr.frnet_step), on by default for a live stream.  chunked: run
+    each micro-batch as one egvsr_upscale_chunk (FNet batched over the
+    micro-batch) instead of one egvsr_upscale_step per frame.  The
+    micro-batch's outputs are stacked on the device and leave through one
+    host copy."""
+
+    def __init__(
+        self,
+        lr_level: int = 0,
+        on_queue=None,
+        output_shape: tuple[int, int] | None = (1440, 2560),
+        weights: str | None = None,
+        compute_dtype: torch.dtype = torch.bfloat16,
+        cfg: egvsr.EGVSRConfig | None = None,
+        pix_fmt: str = "rgb24",
+        cut_threshold: float | None = 0.12,
+        chunked: bool = False,
+        device: str | torch.device = "cuda",
+    ) -> None:
+        super().__init__(name="EgvsrUpscaler")
+        self.device = resolve_device(device)
+        self.pix_fmt = pix_fmt
+        self.lr_shape = LR_LEVELS[lr_level]
+        self.output_shape = output_shape
+        self.on_queue = on_queue
+        self.weights = weights
+        self.compute_dtype = compute_dtype
+        self.cfg = cfg
+        self.cut_threshold = cut_threshold
+        self.chunked = chunked
+
+    def proc_init(self) -> None:
+        # idempotent, so callers can build the service on their own thread
+        # before start() without resetting the recurrence
+        if getattr(self, "_initialized", False):
+            return
+        if self.weights is not None:
+            sd = torch_import.load_state_dict(self.weights)
+            if self.cfg is None:
+                # shape-match the checkpoint (the reference's production
+                # file is nb=10/BD, the FRNet class default nb=16/BI)
+                self.cfg = egvsr.config_from_torch(sd)
+                log.info("EGVSR config from checkpoint: %s", (self.cfg,))
+            params = egvsr.from_torch(sd, self.cfg)
+        else:
+            if self.cfg is None:
+                self.cfg = egvsr.PRODUCTION
+            log.warning("no EGVSR weights given; using random init")
+            params = egvsr.init_params(torch.Generator().manual_seed(0), self.cfg)
+        # weights live on the device in the compute dtype, cast once
+        self._params = torch_import.to_tensors(params, self.device, self.compute_dtype)
+        self.spec = UpscaleSpec(
+            lr_shape=self.lr_shape,
+            output_shape=self.output_shape,
+            compute_dtype=self.compute_dtype,
+            pix_fmt=self.pix_fmt,
+        )
+        h, w = self.lr_shape
+        self._state = egvsr.init_recurrent_state(1, h, w, self.cfg, self.compute_dtype, self.device)
+        log.info("model loaded (egvsr %s, chunked=%s, device=%s)", self.cfg, self.chunked, self.device)
+        self._initialized = True
+
+    @torch.inference_mode()
+    def upscale_dispatch(self, frames):
+        """frames: (N, H, W, 3) uint8 -> (host copy in flight, N)."""
+        frames = np.asarray(frames)
+        if frames.ndim != 4 or frames.shape[-1] != 3:
+            raise ValueError(f"frames must be (N, H, W, 3), got {frames.shape}")
+        x = _to_device(self.device, frames)
+        kw = dict(cut_threshold=self.cut_threshold, cfg=self.cfg)
+        if self.chunked and len(frames) > 1:
+            out, self._state = egvsr_upscale_chunk(self._params, self._state, x, self.spec, **kw)
+        else:
+            outs = []
+            for i in range(len(frames)):
+                o, self._state = egvsr_upscale_step(self._params, self._state, x[i : i + 1],
+                                                    self.spec, **kw)
+                outs.append(o)
+            out = torch.cat(outs)
+        return _HostCopy(out), len(frames)

@@ -5,6 +5,12 @@ JAX package's upscale/steps.py).
     sharpen + 0.8 blend] -> SR model -> [HR sharpen] -> color matching
     -> clamp -> resize to output_shape -> uint8 (or yuv420p) NHWC
 
+and the frame-recurrent EGVSR path, which threads its (lr_prev, hr_prev)
+state through each call:
+
+    uint8 NHWC -> /255 -> area-resize to lr_shape -> FRNet step -> clamp
+    -> resize to output_shape -> uint8 (or yuv420p) NHWC
+
 Every function takes and returns tensors on one device; PyTorch runs
 them eagerly, so there is no per-shape cache to keep.  The denoise path
 threads BSVD's streaming state (a dict) through each call.
@@ -16,7 +22,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from ..models import bsvd
+from ..models import bsvd, egvsr
 from ..ops import (
     global_color_match,
     local_color_match,
@@ -33,6 +39,8 @@ __all__ = [
     "init_denoise_state",
     "upscale_batch_denoise",
     "flush_batch_denoise",
+    "egvsr_upscale_step",
+    "egvsr_upscale_chunk",
 ]
 
 
@@ -223,3 +231,51 @@ def flush_batch_denoise(
     den, new_state = bsvd.chunk_step(params["denoise"], state, zeros, cfg=cfg, t_end=t_end)
     out = _denoise_postproc(sr_apply, params, den[:, 0], lr, lr_before, spec)
     return out, new_state
+
+
+def _egvsr_lr(frames: torch.Tensor, spec: UpscaleSpec) -> torch.Tensor:
+    img = to_float(frames)
+    h, w = img.shape[-3], img.shape[-2]
+    if spec.lr_hr_resize and (h > spec.lr_shape[0] or w > spec.lr_shape[1]):
+        img = resize(img, spec.lr_shape, "area")
+    return img.to(spec.compute_dtype)
+
+
+def egvsr_upscale_step(
+    params: dict,
+    state: tuple,
+    frame: torch.Tensor,
+    spec: UpscaleSpec,
+    cut_threshold: float | None = None,
+    cfg: egvsr.EGVSRConfig | None = None,
+) -> tuple[torch.Tensor, tuple]:
+    """Frame-recurrent EGVSR path (reference egvsr_upscaler.py:145-212):
+    area-resize to lr_shape, one FRNet step with the (lr_prev, hr_prev)
+    carry (the HR warp through K3), clamp, resize to output_shape, uint8.
+    frame: (N, H, W, 3) uint8 -> ((N, OH, OW, 3) uint8, new_state).
+    cut_threshold: the scene-cut skip (egvsr.frnet_step)."""
+    hr, new_state = egvsr.infer_step(
+        params, state, _egvsr_lr(frame, spec),
+        cfg=egvsr.DEFAULT if cfg is None else cfg, cut_threshold=cut_threshold,
+    )
+    hr = torch.clamp(hr.float(), 0.0, 1.0)
+    return _emit(_resize_to_output(hr, spec), spec), new_state
+
+
+def egvsr_upscale_chunk(
+    params: dict,
+    state: tuple,
+    frames: torch.Tensor,
+    spec: UpscaleSpec,
+    cut_threshold: float | None = None,
+    cfg: egvsr.EGVSRConfig | None = None,
+) -> tuple[torch.Tensor, tuple]:
+    """Micro-batch EGVSR path: frames (T, H, W, 3) uint8, with the pre-
+    and post-processing batched over T and FNet run once at batch T
+    (egvsr.infer_chunk); only the warp + SRNet recurrence loops."""
+    hr, new_state = egvsr.infer_chunk(
+        params, state, _egvsr_lr(frames, spec)[:, None],
+        cfg=egvsr.DEFAULT if cfg is None else cfg, cut_threshold=cut_threshold,
+    )
+    hr = torch.clamp(hr[:, 0].float(), 0.0, 1.0)
+    return _emit(_resize_to_output(hr, spec), spec), new_state

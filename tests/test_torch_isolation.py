@@ -34,7 +34,9 @@ def test_importing_the_port_loads_no_jax():
     code = (
         "import sys\n"
         "import sharkshark_tpu_torch.upscale, sharkshark_tpu_torch.ops.tsm_conv\n"
-        "import sharkshark_tpu_torch.ops._build\n"
+        "import sharkshark_tpu_torch.ops._build, sharkshark_tpu_torch.ops.warp\n"
+        "import sharkshark_tpu_torch.pipeline, sharkshark_tpu_torch.main.upscaler\n"
+        "import sharkshark_tpu_torch.models.egvsr, sharkshark_tpu_torch.stream\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )

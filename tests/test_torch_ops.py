@@ -130,3 +130,61 @@ def test_conv2d_prelu_relu6_match_jax(stride):
     _close(got, want)
     _close(nn.prelu(got, _t(alpha)), jnn.prelu(want, jnp.asarray(alpha)))
     _close(nn.relu6(got * 8), jnn.relu6(want * 8))
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_leaky_relu_matches_jax(dtype):
+    x = _rand(2, 5, 7, 4, seed=20) * 4 - 2
+    jx = jnp.asarray(x, dtype)
+    tx = _t(np.asarray(jx.astype(jnp.float32))).to(torch.float32 if dtype == jnp.float32 else torch.bfloat16)
+    got = nn.leaky_relu(tx, 0.2).float()
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jnn.leaky_relu(jx, 0.2).astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("mode", ["reflect", "replicate", "zero"])
+@pytest.mark.parametrize("pad", [2, (0, 3, 0, 5), (1, 0, 2, 3)])
+def test_pad2d_matches_jax(mode, pad):
+    x = _rand(2, 6, 7, 3, seed=21)
+    _close(nn.pad2d(_t(x), pad, mode), jnn.pad2d(jnp.asarray(x), pad, mode), atol=0)
+    # a leading time axis pads like the JAX package's any-rank pad
+    x5 = _rand(2, 1, 6, 7, 3, seed=22)
+    _close(nn.pad2d(_t(x5), pad, mode), jnn.pad2d(jnp.asarray(x5), pad, mode), atol=0)
+
+
+@pytest.mark.parametrize("r", [2, 4])
+def test_space_to_depth_matches_jax(r):
+    x = _rand(2, 8, 12, 3, seed=23)
+    _close(nn.space_to_depth(_t(x), r), jnn.space_to_depth(jnp.asarray(x), r), atol=0)
+    # the inverse of pixel_shuffle only up to channel order: EGVSR's order
+    # is block offset major, (dy * r + dx) * c + c_in
+    y = nn.space_to_depth(_t(x), r)
+    assert torch.equal(y[0, 0, 0, (1 * r + 1) * 3 + 2], _t(x)[0, 1, 1, 2])
+
+
+@pytest.mark.parametrize("h,w", [(8, 12), (9, 13)])
+def test_max_pool2_valid_matches_jax(h, w):
+    """VALID: an odd last row or column is dropped (egvsr._maxpool2)."""
+    import jax
+
+    x = _rand(2, h, w, 5, seed=24) * 2 - 1
+    want = jax.lax.reduce_window(jnp.asarray(x), -jnp.inf, jax.lax.max, (1, 2, 2, 1), (1, 2, 2, 1), "VALID")
+    _close(nn.max_pool2(_t(x)), want, atol=0)
+
+
+@pytest.mark.parametrize("s", [2, 4])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_upsample_tecogan_matches_jax(s, dtype):
+    from sharkshark_tpu.ops.resize import upsample_tecogan as jup
+    from sharkshark_tpu_torch.ops.resize import upsample_tecogan
+
+    x = _rand(2, 5, 7, 2, seed=25) * 40 - 20
+    jx = jnp.asarray(x, dtype)
+    tx = _t(np.asarray(jx.astype(jnp.float32)))
+    if dtype == jnp.bfloat16:
+        tx = tx.to(torch.bfloat16)
+    got = upsample_tecogan(tx, s)
+    assert got.dtype == tx.dtype and got.shape == (2, 5 * s, 7 * s, 2)
+    want = np.asarray(jup(jx, s).astype(jnp.float32))
+    # float32: sums in the same order, 1e-5 relative to values of 20;
+    # bf16: both round the same float32 sum once
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=1e-4 if dtype == jnp.float32 else 0)

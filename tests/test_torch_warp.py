@@ -1,0 +1,174 @@
+"""The port's backward warp (sharkshark_tpu_torch/ops/warp.py) against the
+JAX package's, on the CPU, from the same numpy inputs: the plain
+`backward_warp` against JAX `backward_warp` (the gather), and the plain
+K3 function against the Pallas kernel `banded_backward_warp` run in
+interpret mode, in both output layouts; the skip flag; N = 2 and shapes
+the Pallas kernel refuses.  The CUDA kernel itself is held against the
+plain version on the card (tests/test_torch_warp_cuda.py, chip_smoke.py).
+
+Tolerances: the plain version repeats the JAX arithmetic step by step in
+float32, but XLA's CPU backend rounds the normalised grid differently in
+its last bit (a division by a constant becomes a product with the
+reciprocal, a multiply-add may be fused), which moves a sample point by
+up to about W * 1e-7 px: at these widths (W <= 128) the values agree to
+atol 2e-5, and the jitted jnp.linspace exactly.  Against the Pallas
+kernel: atol 1e-4 in float32 compute (its hat-matrix products sum in
+another order, tests/test_warp_band.py's bound), 2e-2 in bf16 compute
+(the kernel rounds the source window and the hat weights to bf16,
+tests/test_warp_band.py's bf16 bound).  The skip returns x bit-exactly.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sharkshark_tpu.ops import space_to_depth as jspace_to_depth
+from sharkshark_tpu.ops.pallas.warp_band import WINDOW_FULL, banded_backward_warp, banded_warp_bases_for
+from sharkshark_tpu.ops.warp import backward_warp as jbackward_warp
+from sharkshark_tpu.ops.warp import grid_sample_bilinear as jgrid_sample
+from sharkshark_tpu_torch.ops import _build, space_to_depth
+from sharkshark_tpu_torch.ops import warp as wp
+
+TIGHT = 2e-5
+
+
+def _smooth_flow(rng, n, h, w, max_disp):
+    """EGVSR-like flow as tests/test_warp_band.py makes it: uniform on a
+    coarse grid, bilinearly upsampled, times max_disp."""
+    coarse = rng.uniform(-1.0, 1.0, (n, max(h // 32, 2), max(w // 32, 2), 2)).astype(np.float32)
+    flow = jax.image.resize(jnp.asarray(coarse), (n, h, w, 2), "bilinear")
+    return np.asarray(flow * max_disp, np.float32)
+
+
+def _const_flow(n, h, w, dx, dy):
+    flow = np.zeros((n, h, w, 2), np.float32)
+    flow[..., 0], flow[..., 1] = dx, dy
+    return flow
+
+
+def _case(kind, n, h, w, c=3, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.random((n, h, w, c), dtype=np.float32)
+    if kind == "rough95":
+        flow = rng.uniform(-95.0, 95.0, (n, h, w, 2)).astype(np.float32)
+    elif isinstance(kind, str):
+        flow = _smooth_flow(rng, n, h, w, float(kind[len("smooth"):]))
+    else:
+        dx, dy = kind
+        flow = _const_flow(n, h, w, dx, dy)
+    return x, flow
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+CASES = ["smooth3", "smooth20", "smooth90", "rough95",
+         (-80.5, 0.0), (80.5, 0.0), (0.0, -90.25), (30.5, 88.75)]
+
+
+@pytest.mark.parametrize("kind", CASES, ids=str)
+def test_plain_matches_jax_gather_f32(kind):
+    x, flow = _case(kind, 1, 16, 128)
+    want = np.asarray(jbackward_warp(jnp.asarray(x), jnp.asarray(flow)))
+    got = wp.backward_warp(_t(x), _t(flow)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=TIGHT)
+
+
+@pytest.mark.parametrize("n,h,w,c", [(2, 16, 128, 3), (1, 13, 37, 3), (2, 9, 20, 1), (3, 17, 30, 4)])
+def test_plain_matches_jax_gather_ragged_and_batched(n, h, w, c):
+    """N > 1 and shapes that are not multiples of 8 x 128, which the
+    Pallas kernel refuses (its wrapper falls back to the gather)."""
+    x, flow = _case("smooth20", n, h, w, c, seed=h + w)
+    want = np.asarray(jbackward_warp(jnp.asarray(x), jnp.asarray(flow)))
+    np.testing.assert_allclose(wp.backward_warp(_t(x), _t(flow)).numpy(), want, rtol=0, atol=TIGHT)
+    # the K3 wrapper on a CPU tensor is the same plain function
+    fast = wp.backward_warp_fast(_t(x), _t(flow)).numpy()
+    np.testing.assert_allclose(fast, want, rtol=0, atol=TIGHT)
+
+
+def test_grid_sample_matches_jax():
+    rng = np.random.default_rng(4)
+    x = rng.random((2, 11, 19, 3), dtype=np.float32)
+    grid = rng.uniform(-1.3, 1.3, (2, 7, 9, 2)).astype(np.float32)
+    want = np.asarray(jgrid_sample(jnp.asarray(x), jnp.asarray(grid)))
+    np.testing.assert_allclose(wp.grid_sample_bilinear(_t(x), _t(grid)).numpy(), want, rtol=0, atol=TIGHT)
+
+
+def test_linspace_matches_jax():
+    for n in (1, 2, 7, 128, 5120):
+        want = np.asarray(jax.jit(lambda n=n: jnp.linspace(-1.0, 1.0, n, dtype=jnp.float32))())
+        np.testing.assert_array_equal(wp._linspace(n, "cpu").numpy(), want)
+
+
+@pytest.mark.parametrize("s2d", [0, 4])
+@pytest.mark.parametrize("kind", ["smooth3", "smooth20", "rough95", (30.5, 88.75)], ids=str)
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_k3_plain_matches_pallas_interpret(kind, s2d, compute):
+    """The plain K3 function against the Pallas kernel, in the window
+    that fits the flow (FULL for the rough one), NHWC and s2d_out=4."""
+    h, w = 16, 128
+    x, flow = _case(kind, 1, h, w, seed=11)
+    if compute == "bfloat16":
+        # both sides read the same bf16 image
+        x = np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+    jx, jf = jnp.asarray(x), jnp.asarray(flow)
+    bx, by, (ok_full,) = banded_warp_bases_for(jf, (WINDOW_FULL,))
+    assert bool(ok_full)
+    want = banded_backward_warp(jx, jf, bx, by, window=WINDOW_FULL, compute_dtype=jnp.dtype(compute),
+                                interpret=True, s2d_out=s2d)
+    got = wp.backward_warp_plain(_t(x), _t(flow), s2d_out=s2d)
+    assert tuple(got.shape) == want.shape
+    atol = 1e-4 if compute == "float32" else 2e-2
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("s2d", [0, 4])
+def test_s2d_layout_is_space_to_depth_of_the_warp(s2d):
+    x, flow = _case("smooth20", 2, 16, 24, seed=3)
+    want = np.asarray(jbackward_warp(jnp.asarray(x), jnp.asarray(flow)))
+    if s2d:
+        want = np.asarray(jspace_to_depth(jnp.asarray(want), s2d))
+    got = wp.backward_warp_plain(_t(x), _t(flow), s2d_out=s2d).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=TIGHT)
+
+
+@pytest.mark.parametrize("s2d", [0, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_skip_flag_returns_x_exactly(s2d, dtype):
+    x, flow = _case("rough95", 2, 16, 20, seed=5)
+    tx, tf = _t(x).to(dtype), _t(flow).to(dtype)
+    got = wp.backward_warp_fast(tx, tf, s2d_out=s2d, skip=torch.tensor([True]))
+    assert torch.equal(got, space_to_depth(tx, s2d) if s2d else tx)
+    unset = wp.backward_warp_fast(tx, tf, s2d_out=s2d, skip=torch.tensor([False]))
+    assert torch.equal(unset, wp.backward_warp_fast(tx, tf, s2d_out=s2d))
+
+
+def test_bf16_flow_is_read_as_given():
+    """A bf16 flow (the EGVSR path's) is widened exactly, not re-rounded:
+    the warp along it equals the warp along its float32 copy."""
+    x, flow = _case("smooth90", 1, 16, 32, seed=6)
+    fb = _t(flow).to(torch.bfloat16)
+    got = wp.backward_warp_plain(_t(x), fb)
+    want = np.asarray(jbackward_warp(jnp.asarray(x), jnp.asarray(fb.float().numpy())))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TIGHT)
+
+
+def test_cpu_tensor_never_touches_the_build(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("the CPU path must not build or load the kernel")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(_build, "build", refuse)
+    x, flow = _case("smooth3", 1, 8, 12, seed=7)
+    before = wp.launches
+    y = wp.backward_warp_fast(_t(x), _t(flow), s2d_out=4)
+    assert y.shape == (1, 2, 3, 48) and wp.launches == before
+
+
+def test_other_devices_raise_instead_of_falling_back():
+    x = torch.empty((1, 8, 8, 3), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        wp.backward_warp_fast(x, torch.empty((1, 8, 8, 2), device="meta"))
