@@ -11,7 +11,8 @@ over the chunk; each conv carries the previous frame (`center`) and a
 FIFOs carry the frames between push and pop.  Warm-up and end-of-clip
 flushing are a per-conv window mask over the chunk's global frame
 indices.  Every temporal-shift conv goes through ops/tsm_conv.py: the
-CUDA kernel on the card, its plain version on the CPU.
+CUDA kernels on the card (K1 per conv, or with tsm_pair K2 per mem block
+of a warm chunk), their plain versions on the CPU.
 
 State is a dict of tensors with the JAX package's layout; its frame
 counter "t" is a Python int, so masks and ring offsets are decided on
@@ -237,9 +238,25 @@ def _shift_conv_chunk(p: dict, st: dict, x: torch.Tensor, act: str):
     return y, {"left": new_left.contiguous(), "center": x[-1]}
 
 
-def _mem_chunk(p, st, x, act, first_idx, t_end, warm):
+def _pair_chunk(p, st, x, act):
+    """Both shift convs of a mem block in one K2 launch (warm chunks, T >= 2):
+    the same outputs and carries as two _shift_conv_chunk calls."""
+    fold = x.shape[-1] // 8
+    y2, y1_last2 = tsm.tsm_conv_pair(
+        x, st["c1"]["center"], st["c1"]["left"], st["c2"]["center"], st["c2"]["left"],
+        p["c1"]["w"], p["c1"].get("b"), p["c2"]["w"], p["c2"].get("b"), act=act)
+    new_c1 = {"left": x[-2, ..., fold : 2 * fold].contiguous(), "center": x[-1]}
+    new_c2 = {"left": y1_last2[0, ..., fold : 2 * fold].contiguous(), "center": y1_last2[1]}
+    return y2, {"c1": new_c1, "c2": new_c2}
+
+
+def _mem_chunk(p, st, x, act, first_idx, t_end, warm, tsm_pair=False):
     """A mem block's two shift convs; cold and flush chunks zero the
-    conv inputs outside each conv's frame window (warm chunks skip it)."""
+    conv inputs outside each conv's frame window (warm chunks skip it).
+    tsm_pair runs a warm chunk of T >= 2 frames through K2; cold and
+    flush chunks keep K1, since a window mask lies between their convs."""
+    if warm and tsm_pair and x.shape[0] >= 2:
+        return _pair_chunk(p, st, x, act)
     if not warm:
         x = _window_mask(x, first_idx, t_end)
     y, s1 = _shift_conv_chunk(p["c1"], st["c1"], x, act)
@@ -311,7 +328,7 @@ def ring_to_fifo_state(state: dict, cfg: BSVDConfig = BSVD_32) -> dict:
     return {**state, "temp1": fix(state["temp1"]), "temp2": fix(state["temp2"])}
 
 
-def _denblock_chunk(p, st, x, act, base, t_end, warm):
+def _denblock_chunk(p, st, x, act, base, t_end, warm, tsm_pair):
     """One DenBlock over a chunk.  x: (T, N, H, W, in_ch) for frames
     [base, base+T); returns output frames [base-8, base+T-8)."""
     rb = base if warm else None  # ring FIFOs on warm steps only
@@ -319,13 +336,13 @@ def _denblock_chunk(p, st, x, act, base, t_end, warm):
     x0 = _conv_batched(p["inc1"], _conv_batched(p["inc0"], x, act), act)
     skip2, st_s2 = _fifo(st["skip2"], x0, rb)
     x1 = _conv_batched(p["down0"], x0, act, stride=2)
-    x1, st_d0 = _mem_chunk(p["down0_mem"], st["down0"], x1, act, base, t_end, warm)
+    x1, st_d0 = _mem_chunk(p["down0_mem"], st["down0"], x1, act, base, t_end, warm, tsm_pair)
     skip3, st_s3 = _fifo(st["skip3"], x1)  # x1 frames [base-2, ...)
     x2 = _conv_batched(p["down1"], x1, act, stride=2)
-    x2, st_d1 = _mem_chunk(p["down1_mem"], st["down1"], x2, act, base - 2, t_end, warm)
-    u2, st_u2 = _mem_chunk(p["up2_mem"], st["up2"], x2, act, base - 4, t_end, warm)
+    x2, st_d1 = _mem_chunk(p["down1_mem"], st["down1"], x2, act, base - 2, t_end, warm, tsm_pair)
+    u2, st_u2 = _mem_chunk(p["up2_mem"], st["up2"], x2, act, base - 4, t_end, warm, tsm_pair)
     u2 = _ps_batched(_conv_batched(p["up2"], u2), 2)
-    u1, st_u1 = _mem_chunk(p["up1_mem"], st["up1"], u2 + skip3, act, base - 6, t_end, warm)
+    u1, st_u1 = _mem_chunk(p["up1_mem"], st["up1"], u2 + skip3, act, base - 6, t_end, warm, tsm_pair)
     u1 = _ps_batched(_conv_batched(p["up1"], u1), 2)
     y = _conv_batched(p["outc1"], _conv_batched(p["outc0"], u1 + skip2, act))
     y = _residual3(y, skip1)
@@ -344,6 +361,7 @@ def chunk_step(
     cfg: BSVDConfig = BSVD_32,
     t_end: int | None = None,
     warm: bool = False,
+    tsm_pair: bool = False,
 ) -> tuple[torch.Tensor, dict]:
     """Denoise a chunk of T consecutive frames in one layer-major pass.
 
@@ -359,10 +377,15 @@ def chunk_step(
     skip1/skip2 FIFOs run as rings when T divides 8, which requires the
     first warm call at state['t'] % 8 == 0 and the same T after it.  The
     resulting state is in ring order: pass it through
-    ring_to_fifo_state before a cold or flush step."""
+    ring_to_fifo_state before a cold or flush step.
+
+    tsm_pair=True runs each mem block of a warm chunk with T >= 2 as one
+    K2 launch (ops/tsm_conv.py::tsm_conv_pair) in place of two K1
+    launches: the same function, y1 kept on chip.  Cold and flush chunks
+    ignore it."""
     if warm and t_end is not None:
         raise ValueError("warm chunk_step is live-stream only (t_end=None)")
     n0 = state["t"]
-    mid, st1 = _denblock_chunk(params["temp1"], state["temp1"], frames, cfg.act, n0, t_end, warm)
-    y, st2 = _denblock_chunk(params["temp2"], state["temp2"], mid, cfg.act, n0 - 8, t_end, warm)
+    mid, st1 = _denblock_chunk(params["temp1"], state["temp1"], frames, cfg.act, n0, t_end, warm, tsm_pair)
+    y, st2 = _denblock_chunk(params["temp2"], state["temp2"], mid, cfg.act, n0 - 8, t_end, warm, tsm_pair)
     return y, {"t": n0 + frames.shape[0], "temp1": st1, "temp2": st2}

@@ -1,17 +1,22 @@
 """Where the time of the port's warm denoise step goes, on one GPU.
 
     python -m sharkshark_tpu_torch.tools.profile_denoise_step [--iters 5] [--out FILE]
+        [--tsm-pair] [--conv-stack L]
 
 Runs steps.upscale_batch_denoise at the main path's shapes (720p ->
-1440p, T=4, bf16, the repo's minted SRVGG and BSVD-32 weights): four
-cold chunks to reach the warm regime, then `--iters` warm steps, and
-prints one JSON object with
+1440p, T=4, bf16, the repo's minted SRVGG and BSVD-32 weights) on the
+service's routes (K1 per shift conv, the SRVGG body through K4 one
+layer a launch; --tsm-pair selects K2, --conv-stack L K4's depth, 0 the
+layer-by-layer body): four cold chunks to
+reach the warm regime, then `--iters` warm steps, and prints one JSON
+object with
   - step_ms: device-synchronised host time per warm step,
   - busy_ms: the sum of the device time of the kernels of one step,
   - idle_share: 1 - busy_ms / step_ms,
   - stages: device ms per step under each stage (torch.profiler ranges
-    around bsvd.chunk_step, the temporal-shift convs, the SRVGG body,
-    the fused epilogue, sharpen and color match),
+    around bsvd.chunk_step, the temporal-shift convs (K1, K2), the SRVGG
+    body, K4, the fused epilogue, sharpen and color match),
+  - launches_per_step: each kernel's launches per warm step,
   - top_kernels: the kernels with the most device time per step,
 and, with --out, writes the same object to FILE.
 """
@@ -30,6 +35,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from ..models import bsvd, srvgg, torch_import
+from ..ops import conv_stack as cs
 from ..ops import fused_epilogue
 from ..ops import tsm_conv as tsm
 from ..upscale import steps
@@ -54,6 +60,9 @@ def main() -> None:
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--out", type=Path, help="also write the JSON object here")
+    ap.add_argument("--tsm-pair", action="store_true", help="BSVD's warm mem blocks through K2")
+    ap.add_argument("--conv-stack", type=int, default=srvgg.DEFAULT_CONV_STACK,
+                    help="SRVGG body layers per K4 launch (0: layer by layer; default: the service's)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_denoise_step: needs a CUDA device")
@@ -66,7 +75,9 @@ def main() -> None:
     ranges = [
         (steps.bsvd, "chunk_step", "bsvd.chunk_step"),
         (bsvd.tsm, "tsm_conv", "bsvd.tsm_conv"),
+        (bsvd.tsm, "tsm_conv_pair", "bsvd.tsm_conv_pair"),
         (srvgg, "_body", "srvgg.body"),
+        (srvgg.cs, "fused_conv_stack", "srvgg.fused_conv_stack"),
         (fused_epilogue, "ps4_bicubic_down_rational", "srvgg.fused_epilogue"),
         (fused_epilogue, "nearest4_bicubic_down_rational", "srvgg.fused_epilogue_residual"),
         (steps, "sharpen", "post.sharpen"),
@@ -84,7 +95,7 @@ def main() -> None:
     }, dev, dtype)
 
     def sr_apply(p, x):
-        return srvgg.apply_down_rational(p, x, 2, 1)
+        return srvgg.apply_down_rational(p, x, 2, 1, conv_stack=args.conv_stack)
 
     rng = np.random.default_rng(0)
     frames = torch.from_numpy(rng.integers(0, 256, (t, 720, 1280, 3), dtype=np.uint8)).to(dev)
@@ -93,7 +104,8 @@ def main() -> None:
     def step():
         nonlocal state
         out, state = steps.upscale_batch_denoise(
-            sr_apply, params, state, frames, spec, warm=state["t"] >= bsvd.SHIFT_NUM)
+            sr_apply, params, state, frames, spec, warm=state["t"] >= bsvd.SHIFT_NUM,
+            tsm_pair=args.tsm_pair)
         return out
 
     with torch.inference_mode():
@@ -106,12 +118,13 @@ def main() -> None:
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) / args.iters * 1e3
 
-        tsm.launches = 0
+        tsm.launches = tsm.pair_launches = cs.launches = 0
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(args.iters):
                 step()
             torch.cuda.synchronize()
-    launches = tsm.launches
+    launches = {"tsm_conv": tsm.launches, "tsm_conv_pair": tsm.pair_launches,
+                "fused_conv_stack": cs.launches}
 
     events = prof.key_averages()
     per_step = 1e-3 / args.iters  # profiler us over iters -> ms per step
@@ -127,8 +140,10 @@ def main() -> None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     res = {
         "card": card, "shape": "720x1280 -> 1440x2560", "batch": t, "iters": args.iters,
+        "tsm_pair": args.tsm_pair, "conv_stack": args.conv_stack,
         "step_ms": step_ms, "ms_per_frame": step_ms / t, "busy_ms": busy_ms,
-        "idle_share": 1.0 - busy_ms / step_ms, "tsm_conv_launches_per_step": launches / args.iters,
+        "idle_share": 1.0 - busy_ms / step_ms,
+        "launches_per_step": {k: v / args.iters for k, v in launches.items()},
         "kernel_launches_per_step": len(kernels) / args.iters,
         "stages": stages, "top_kernels": [{"name": k[:120], "ms": v} for k, v in top],
     }

@@ -8,6 +8,7 @@ from .steps import (
     upscale_batch_denoise,
     upscale_multi,
 )
+from .tile import tile_upscale
 from .service import (
     BaseUpscalerService,
     EgvsrUpscalerService,
@@ -19,5 +20,5 @@ __all__ = [
     "LR_LEVELS", "HR_LEVELS", "lr_shape_for_level", "hr_shape_for_level",
     "UpscaleSpec", "upscale_multi", "upscale_batch_denoise",
     "flush_batch_denoise", "init_denoise_state", "egvsr_upscale_step", "egvsr_upscale_chunk",
-    "UpscalerQueueEntry", "BaseUpscalerService", "EsrganUpscalerService", "EgvsrUpscalerService",
+    "tile_upscale", "UpscalerQueueEntry", "BaseUpscalerService", "EsrganUpscalerService", "EgvsrUpscalerService",
 ]

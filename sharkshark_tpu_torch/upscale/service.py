@@ -3,7 +3,8 @@
 
 - BaseUpscalerService: per-job timing and entry repack around an
   `upscale_dispatch()` hook, with an in-flight ring that overlaps the
-  device-to-host copy of batch k with the compute of batch k+1.
+  device-to-host copy of batch k with the compute of batch k+1, and
+  request coalescing (`coalesce_max`) for the stateless SR-only path.
 - EsrganUpscalerService: the production path (reference
   FsrcnnUpscalerService, fsrcnn_upscaler.py:86-326, which runs
   RealESRGAN-SRVGG), with the BSVD denoiser on micro-batches and its
@@ -15,11 +16,15 @@
 On the GPU a dispatch enqueues the step on the current CUDA stream, then
 a non_blocking copy of the result into pinned host memory and an event;
 the fetch waits on that event only.  Tail micro-batches are padded to
-batch_size and sliced after, as in the JAX package.
+batch_size and sliced after, as in the JAX package; coalesced batches
+larger than batch_size run at their own size (eager PyTorch keeps no
+per-shape executables, so the JAX package's power-of-two padding has no
+purpose here).
 """
 
 from __future__ import annotations
 
+import queue
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -97,11 +102,17 @@ class BaseUpscalerService(BaseService):
     (reference upscaler_base.py:26-63), plus the device-to-host overlap:
     jobs are dispatched and parked in an in-flight ring, and the host
     fetch of batch k happens only after batch k+1 has been dispatched.
-    When the job queue idles the ring drains at once (proc_idle)."""
+    When the job queue idles the ring drains at once (proc_idle).
+
+    coalesce_max > 1 merges jobs of the same frame shape that are already
+    queued into one dispatch of up to coalesce_max frames (an image
+    service batching concurrent requests); each job still gets its own
+    entry back, in order.  Stateless paths only."""
 
     lr_shape: tuple[int, int] = (720, 1280)
     output_shape: tuple[int, int] | None = (1440, 2560)
     inflight_depth: int = 2  # batches dispatched ahead of the host fetch
+    coalesce_max: int = 1
 
     def __init__(self, **kw) -> None:
         super().__init__(**kw)
@@ -110,51 +121,86 @@ class BaseUpscalerService(BaseService):
         # transfer wait)
         self.fetch_busy_s: float = 0.0
 
+    def _coalesce(self, job: UpscalerQueueEntry) -> list[UpscalerQueueEntry]:
+        """Take further already-queued jobs of the same frame shape, up to
+        coalesce_max frames in all, to ride one dispatch.  The first job
+        that does not fit (or a control sentinel) is stashed back for the
+        worker loop, so the order holds."""
+        jobs, total = [job], len(job.frames)
+        shape = np.asarray(job.frames).shape[1:]
+        while total < self.coalesce_max:
+            try:
+                nxt = self.job_queue.get_nowait()
+            except queue.Empty:
+                break
+            if (
+                not isinstance(nxt, UpscalerQueueEntry)
+                or nxt.frames is None
+                or np.asarray(nxt.frames).shape[1:] != shape
+                or total + len(nxt.frames) > self.coalesce_max
+            ):
+                self._stash.append(nxt)
+                break
+            jobs.append(nxt)
+            total += len(nxt.frames)
+        return jobs
+
     def proc_job_recieved(self, job: UpscalerQueueEntry):
         self.profiler = job.profiler
         self._last_step = job.step
-        job.profiler.end("recoder.output")
-        # 'upscaler.upscale' = host dispatch cost; the device/transfer wait
-        # surfaces as 'upscaler.fetch' at fetch time
-        job.profiler.start("upscaler.upscale")
+        jobs = self._coalesce(job) if self.coalesce_max > 1 and job.frames is not None else [job]
+        for j in jobs:
+            j.profiler.end("recoder.output")
+            # 'upscaler.upscale' = host dispatch cost; the device/transfer
+            # wait surfaces as 'upscaler.fetch' at fetch time
+            j.profiler.start("upscaler.upscale")
         t_disp = time.time()
-        dev, n = self.upscale_dispatch(job.frames)
-        job.profiler.end("upscaler.upscale")
-        self._inflight.append((job, dev, n, t_disp))
+        frames = job.frames if len(jobs) == 1 else np.concatenate([np.asarray(j.frames) for j in jobs])
+        dev, _ = self.upscale_dispatch(frames)
+        group, start = [], 0
+        for j in jobs:
+            j.profiler.end("upscaler.upscale")
+            group.append((j, start, len(j.frames)))
+            start += len(j.frames)
+        self._inflight.append((group, dev, t_disp))
         if len(self._inflight) < max(1, self.inflight_depth):
             return None
-        return [self._fetch_oldest()]
+        return self._fetch_oldest()
 
-    def _fetch_oldest(self) -> UpscalerQueueEntry:
-        job, dev, n, t = self._inflight.popleft()
+    def _fetch_oldest(self) -> list[UpscalerQueueEntry]:
+        """The entries of the oldest dispatch, one per job it carried."""
+        group, dev, t = self._inflight.popleft()
         elapsed = time.time() - t
-        job.profiler.start("upscaler.fetch")
-        t_fetch = time.perf_counter()
-        frames_up = self._fetch(dev, n)
-        self.fetch_busy_s += time.perf_counter() - t_fetch
-        job.profiler.end("upscaler.fetch")
-        job.profiler.start("upscaler.output")
-        return UpscalerQueueEntry(
-            frames=frames_up,
-            audio_segment=job.audio_segment,
-            step=job.step,
-            elapsed=elapsed,
-            last_modified=time.time(),
-            profiler=job.profiler,
-            captured_at=job.captured_at,
-        )
+        out = []
+        for job, start, n in group:
+            job.profiler.start("upscaler.fetch")
+            t_fetch = time.perf_counter()
+            frames_up = self._fetch(dev, n, start)
+            self.fetch_busy_s += time.perf_counter() - t_fetch
+            job.profiler.end("upscaler.fetch")
+            job.profiler.start("upscaler.output")
+            out.append(UpscalerQueueEntry(
+                frames=frames_up,
+                audio_segment=job.audio_segment,
+                step=job.step,
+                elapsed=elapsed,
+                last_modified=time.time(),
+                profiler=job.profiler,
+                captured_at=job.captured_at,
+            ))
+        return out
 
     def proc_idle(self):
         if self._inflight:
-            yield self._fetch_oldest()
+            yield from self._fetch_oldest()
 
     def proc_eof(self):
         while self._inflight:
-            yield self._fetch_oldest()
+            yield from self._fetch_oldest()
 
     @staticmethod
-    def _fetch(dev: _HostCopy, n: int) -> np.ndarray:
-        return dev.numpy()[:n]
+    def _fetch(dev: _HostCopy, n: int, start: int = 0) -> np.ndarray:
+        return dev.numpy()[start : start + n]
 
     def upscale_dispatch(self, frames):  # pragma: no cover - abstract
         """Enqueue the device step for `frames`; return (host copy, n_real)
@@ -188,7 +234,15 @@ class EsrganUpscalerService(BaseUpscalerService):
     fsrcnn_upscaler.py:86-326) for upscaler_model='realesrgan'.
 
     device: 'cuda' (default) or 'cpu'; a CUDA device on a host without
-    CUDA raises here, at construction."""
+    CUDA raises here, at construction.  tsm_pair: BSVD's warm mem blocks
+    through K2 (bsvd.chunk_step); off, since K2 measured slower than two
+    K1 launches.  conv_stack: the SRVGG body through K4, that many layers
+    per launch (srvgg.apply; 0 = layer by layer); None takes
+    srvgg.DEFAULT_CONV_STACK where K4 can run the config and 0 where it
+    cannot; a number K4 cannot take for the config raises here.
+    coalesce_max: merge queued same-shape requests into one dispatch
+    (forced to 1 when denoising: the BSVD stream is temporal, its chunk
+    is not a batch)."""
 
     def __init__(
         self,
@@ -209,6 +263,9 @@ class EsrganUpscalerService(BaseUpscalerService):
         fast_epilogue: bool = True,
         device: str | torch.device = "cuda",
         pix_fmt: str = "rgb24",
+        tsm_pair: bool = False,
+        conv_stack: int | None = None,
+        coalesce_max: int = 1,
     ) -> None:
         super().__init__(name="EsrganUpscaler")
         if upscaler_model != "realesrgan":
@@ -234,6 +291,9 @@ class EsrganUpscalerService(BaseUpscalerService):
         self.srvgg_cfg = srvgg_cfg
         self.bsvd_cfg = bsvd_cfg
         self.fast_epilogue = fast_epilogue
+        self.tsm_pair = tsm_pair
+        self.conv_stack = srvgg.resolve_conv_stack(srvgg_cfg, conv_stack)
+        self.coalesce_max = 1 if denoising else max(1, coalesce_max)
 
     def _load_srvgg_params(self) -> dict:
         """realesr-general-x4v3 weights with DNI denoise-strength blending
@@ -272,12 +332,12 @@ class EsrganUpscalerService(BaseUpscalerService):
             log.info("fast epilogue active (fused ps4 + bicubic %d/%d)", *ratio)
 
             def sr_apply(p, x, r=ratio):
-                return srvgg.apply_down_rational(p, x, r[0], r[1], cfg=cfg)
+                return srvgg.apply_down_rational(p, x, r[0], r[1], cfg=cfg, conv_stack=self.conv_stack)
 
         else:
 
             def sr_apply(p, x):
-                return srvgg.apply(p, x, cfg=cfg)
+                return srvgg.apply(p, x, cfg=cfg, conv_stack=self.conv_stack)
 
         self._sr_apply = sr_apply
         self._sr_params = sr_params
@@ -301,8 +361,8 @@ class EsrganUpscalerService(BaseUpscalerService):
             self._tail_real: list = []
             self._frames_seen = 0
             self._last_step = 0
-        log.info("model loaded (%s, denoise=%s, device=%s)",
-                 self.upscaler_model, self.denoising, self.device)
+        log.info("model loaded (%s, denoise=%s, tsm_pair=%s, conv_stack=%d, device=%s)",
+                 self.upscaler_model, self.denoising, self.tsm_pair, self.conv_stack, self.device)
         self._initialized = True
 
     @torch.inference_mode()
@@ -370,6 +430,7 @@ class EsrganUpscalerService(BaseUpscalerService):
                 # window mask is an identity
                 warm=self._frames_seen >= bsvd.SHIFT_NUM,
                 sr_sub_batch=self._sr_sub,
+                tsm_pair=self.tsm_pair,
             )
             self._frames_seen += len(frames)
             # remember the fed frames (pads included: they advance the BSVD

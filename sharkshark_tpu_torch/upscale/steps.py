@@ -149,6 +149,7 @@ def upscale_batch_denoise(
     cfg: bsvd.BSVDConfig = bsvd.BSVD_32,
     warm: bool = False,
     sr_sub_batch: int | None = None,
+    tsm_pair: bool = False,
 ) -> tuple[torch.Tensor, dict]:
     """Micro-batched denoise path: the micro-batch runs through BSVD in
     one layer-major chunk_step, then the SR stage and color matching run
@@ -157,7 +158,8 @@ def upscale_batch_denoise(
     frames: (T, H, W, 3) uint8 -> ((T, OH, OW, 3) uint8, new_state).
     Output slot j blends input j's LR frame with the denoised frame
     SHIFT_NUM frames behind it (the reference production denoiser's
-    pipeline delay)."""
+    pipeline delay).  tsm_pair: BSVD's warm mem blocks through K2
+    (bsvd.chunk_step)."""
     img = to_float(frames)
     lr = resize(img, spec.lr_shape, "area")
     lr_before = lr
@@ -172,7 +174,7 @@ def upscale_batch_denoise(
         for i in range(t)
     ])
     x4 = torch.cat([lr_p[:, None].to(state_dtype), noise], dim=-1)
-    den, new_state = bsvd.chunk_step(params["denoise"], state, x4, cfg=cfg, warm=warm)
+    den, new_state = bsvd.chunk_step(params["denoise"], state, x4, cfg=cfg, warm=warm, tsm_pair=tsm_pair)
     den = den[:, 0]
     if sr_sub_batch and t > sr_sub_batch and t % sr_sub_batch == 0:
         out = torch.cat([

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no file of sharkshark_tpu_torch/ and
-not chip_smoke.py imports JAX or anything of the JAX package, and
-importing the port loads neither."""
+not chip_smoke.py imports JAX, anything of the JAX package or of its
+experiments/ (where K4's Pallas kernel lives), and importing the port
+loads none of them."""
 
 import ast
 import subprocess
@@ -11,7 +12,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "sharkshark_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "sharkshark_tpu")
+FORBIDDEN = ("jax", "jaxlib", "sharkshark_tpu", "experiments")
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -37,6 +38,8 @@ def test_importing_the_port_loads_no_jax():
         "import sharkshark_tpu_torch.ops._build, sharkshark_tpu_torch.ops.warp\n"
         "import sharkshark_tpu_torch.pipeline, sharkshark_tpu_torch.main.upscaler\n"
         "import sharkshark_tpu_torch.models.egvsr, sharkshark_tpu_torch.stream\n"
+        "import sharkshark_tpu_torch.ops.conv_stack, sharkshark_tpu_torch.upscale.tile\n"
+        "import sharkshark_tpu_torch.models.srvgg, sharkshark_tpu_torch.models.bsvd\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )

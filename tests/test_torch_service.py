@@ -125,16 +125,17 @@ def _conv_sd(prefix, i, o, rng):
     }
 
 
-def _write_tiny_weights(tmp_path):
-    """Tiny SRVGG and BSVD checkpoints in the reference key layout, so
-    both services load the same weights through their own from_torch."""
+def _write_tiny_weights(tmp_path, sr_cfg=TINY_SRVGG):
+    """Tiny SRVGG (sr_cfg's widths) and BSVD checkpoints in the reference
+    key layout, so both services load the same weights through their own
+    from_torch."""
     rng = np.random.default_rng(2)
     sd = {}
-    n = TINY_SRVGG.num_conv + 1
+    n, f = sr_cfg.num_conv + 1, sr_cfg.num_feat
     for i in range(n):
-        sd.update(_conv_sd(f"body.{2 * i}.", 3 if i == 0 else 16, 16, rng))
-        sd[f"body.{2 * i + 1}.weight"] = np.full(16, 0.25, np.float32)
-    sd.update(_conv_sd(f"body.{2 * n}.", 16, 48, rng))
+        sd.update(_conv_sd(f"body.{2 * i}.", 3 if i == 0 else f, f, rng))
+        sd[f"body.{2 * i + 1}.weight"] = np.full(f, 0.25, np.float32)
+    sd.update(_conv_sd(f"body.{2 * n}.", f, 48, rng))
     sr_path = tmp_path / "srvgg-tiny.pth"
     torch.save({"params": {k: torch.from_numpy(v) for k, v in sd.items()}}, sr_path)
 
@@ -189,6 +190,27 @@ def test_service_matches_jax_service(tmp_path):
     want = _drive(jsvc, JEntry, JEOF, jobs)
     # 23 live frames + the 15 real frames among the last 16 fed
     assert got.shape == (23 + 15, 48, 80, 3)
+    _assert_u8_close(got, want)
+
+
+def test_service_routes_match_jax_service(tmp_path):
+    """The whole denoise service with both kernel routes on (K2 on warm
+    chunks, K4 over the SRVGG body two layers a launch; their plain
+    versions on the CPU) against the JAX service's XLA route."""
+    sr_j, sr_t = jsrvgg.SRVGGConfig(num_feat=64, num_conv=3), srvgg.SRVGGConfig(num_feat=64, num_conv=3)
+    sr_w, den_w = _write_tiny_weights(tmp_path, sr_t)
+    kw = dict(lr_level=0, denoising=True, denoise_rate=0.75, batch_size=4,
+              output_shape=(48, 80), weights=sr_w, denoise_weights=den_w)
+    jsvc = JService(compute_dtype=jnp.float32, srvgg_cfg=sr_j, bsvd_cfg=TINY_BSVD_J, **kw)
+    tsvc = EsrganUpscalerService(compute_dtype=torch.float32, srvgg_cfg=sr_t, bsvd_cfg=TINY_BSVD,
+                                 device="cpu", tsm_pair=True, conv_stack=2, **kw)
+    jsvc.lr_shape = tsvc.lr_shape = (24, 40)
+    rng = np.random.default_rng(4)
+    # 4 cold micro-batches, then 2 warm ones, then the drain
+    jobs = [rng.integers(0, 256, (4, 24, 40, 3), dtype=np.uint8) for _ in range(6)]
+    got = _drive(tsvc, UpscalerQueueEntry, EOF, jobs)
+    want = _drive(jsvc, JEntry, JEOF, jobs)
+    assert got.shape == (24 + 16, 48, 80, 3)
     _assert_u8_close(got, want)
 
 
