@@ -10,11 +10,14 @@ Phases (any failure exits non-zero, and nothing is caught):
      service's default routes (tsm_pair, conv_stack);
   2. build every CUDA kernel of the paths from the sources, in parallel;
   3. each kernel against its plain PyTorch version on the card at the
-     main paths' shapes, with timings (CUDA events, median of 30) beside
-     the bound derived from the H100 SXM data sheet and a PyTorch call
-     of the same function as a yardstick: K1 and K2 (tsm_conv,
-     tsm_conv_pair) at the warm chunk's shapes, K3 (backward_warp) at
-     EGVSR's, K4 (fused_conv_stack) at SRVGG's body for L = 1, 2, 4;
+     main paths' shapes, with timings (CUDA events around each call,
+     median of 30) beside the bound derived from the H100 SXM data sheet
+     and a PyTorch call of the same function as a yardstick (timing and
+     bound from tools/bench_tsm_conv.py): K1 and K2 (tsm_conv,
+     tsm_conv_pair) at the warm chunk's shapes (K1 also with its share
+     of the bound and its persistent grid, blocks against tiles; K2
+     beside two K1 launches), K3 (backward_warp) at EGVSR's, K4
+     (fused_conv_stack) at SRVGG's body for L = 1, 2, 4;
   4. the denoise path at full width: first the warm step's ms/frame
      under each route (K1 or K2; the body layer by layer or through K4
      at L = 1, 2, 4), then the port's EsrganUpscalerService, 720p ->
@@ -62,11 +65,7 @@ import torch
 import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
-PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16, NVIDIA data sheet
-PEAK_F32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores, NVIDIA data sheet
-PEAK_BYTES = 3.35e12       # H100 SXM HBM3, NVIDIA data sheet
 MINTED = ROOT / "weights" / "minted"
-TOL = 0.05                 # rtol = atol, as tests/test_tsm_conv.py
 PSNR_MIN = 35.0
 # K3 against its plain version in bf16: the kernel samples at u + dx, the
 # plain version through the normalised grid, up to ~1e-3 px apart at
@@ -86,21 +85,6 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
-    """Median device time of fn() in ms, by CUDA events around each call."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
 def psnr(a: np.ndarray, b: np.ndarray) -> float:
     mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
     return float("inf") if mse == 0 else 10 * np.log10(255.0**2 / mse)
@@ -109,72 +93,28 @@ def psnr(a: np.ndarray, b: np.ndarray) -> float:
 # --------------------------------------------------------------- phase 3
 
 
-def check_tsm_conv(tsm, c: int, h: int, w: int, t: int = 4) -> dict:
-    """K1 against tsm_conv_plain on the card at one main-path shape."""
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(1000 + c)
-
-    def randn(*shape, scale=1.0):
-        return (torch.randn(shape, generator=g, device=dev) * scale).to(torch.bfloat16)
-
-    x = randn(t, 1, h, w, c)
-    prev1, left0 = randn(1, h, w, c), randn(1, h, w, c // 8)
-    wt, b = randn(3, 3, c, c, scale=0.05), randn(c, scale=0.1)
-
-    before = tsm.launches
-    got = tsm.tsm_conv(x, prev1, left0, wt, b, "relu6")
-    torch.cuda.synchronize()
-    assert tsm.launches == before + 1, "the wrapper did not launch the kernel"
-    want = tsm.tsm_conv_plain(x, prev1, left0, wt, b, "relu6")
-    err = (got.float() - want.float()).abs()
-    max_err = err.max().item()
-    bad = (err > TOL + TOL * want.float().abs()).sum().item()
-    assert bad == 0, f"tsm_conv C={c}: {bad} values outside rtol=atol={TOL}, max |err| {max_err}"
-    assert torch.isfinite(got.float()).all()
-
-    # yardstick only (the port never calls it): one cuDNN conv over the
-    # pre-built mixed input, channels_last bf16
-    mix, w_oihw = built_mix(x, prev1, left0), oihw(wt)
-
-    kernel_ms = time_ms(lambda: tsm.tsm_conv(x, prev1, left0, wt, b, "relu6"))
-    plain_ms = time_ms(lambda: tsm.tsm_conv_plain(x, prev1, left0, wt, b, "relu6"))
-    library_ms = time_ms(lambda: F.conv2d(mix, w_oihw, b, padding=1))
-
-    flops = 2 * 9 * c * c * h * w * t
-    nbytes = nbytes_of(x, prev1, left0, wt, b, got)
-    row = {
-        "c": c, "h": h, "w": w, "t": t,
-        "max_abs_err": max_err, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-        "library_ms": library_ms, "flops": flops, "bytes": nbytes,
-    }
-    row.update(bound(flops, nbytes))
-    log(f"tsm_conv C={c} {h}x{w} T={t}: max|err| {max_err:.4g} (rtol=atol={TOL}); "
-        f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, one cuDNN conv on the "
-        f"built mix {library_ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+def check_tsm_conv(tsm, bench, c: int, h: int, w: int) -> dict:
+    """K1 against tsm_conv_plain on the card at one main-path shape, then
+    timed beside its plain version, one cuDNN conv on the built mix and
+    its bound (tools/bench_tsm_conv.py's measurement), with its
+    persistent grid."""
+    row = bench.measure(c, h, w)
+    row["tiles"], row["blocks"] = tsm.kernel_schedule(row["t"], 1, h, w, c)
+    log(f"tsm_conv C={c} {h}x{w} T={row['t']}: max|err| {row['max_abs_err']:.4g} (rtol=atol={bench.TOL}); "
+        f"kernel {row['kernel_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, one cuDNN conv on the "
+        f"built mix {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+        f"{100 * row['bound_share']:.1f}% of the bound; {row['blocks']} persistent blocks for "
+        f"{row['tiles']} tiles")
     return row
-
-
-def built_mix(x: torch.Tensor, prev1: torch.Tensor, left0: torch.Tensor) -> torch.Tensor:
-    """The temporal-shift conv's mixed input of a (T, 1, H, W, C) chunk as
-    a channels_last NCHW tensor, for one cuDNN conv over it."""
-    t, _, h, w, c = x.shape
-    fold = c // 8
-    hist = torch.cat([left0[None], prev1[None, ..., fold : 2 * fold], x[: t - 2, ..., fold : 2 * fold]])
-    rest = torch.cat([prev1[None, ..., 2 * fold :], x[: t - 1, ..., 2 * fold :]])
-    return torch.cat([x[..., :fold], hist[:t], rest], -1).reshape(t, h, w, c).permute(0, 3, 1, 2)
-
-
-def oihw(w: torch.Tensor) -> torch.Tensor:
-    return w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
 
 
 def nbytes_of(*tensors) -> int:
     return sum(a.numel() * a.element_size() for a in tensors if a is not None)
 
 
-def check_tsm_conv_pair(tsm, c: int, h: int, w: int, t: int = 4) -> dict:
+def check_tsm_conv_pair(tsm, bench, c: int, h: int, w: int, t: int = 4) -> dict:
     """K2 against tsm_conv_pair_plain on the card at one warm-chunk shape:
-    y2 and the carry y1_last2 at rtol = atol = TOL."""
+    y2 and the carry y1_last2 at rtol = atol = 0.05."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2000 + c)
 
@@ -195,9 +135,9 @@ def check_tsm_conv_pair(tsm, c: int, h: int, w: int, t: int = 4) -> dict:
     for name, got, want in (("y2", got_y2, want_y2), ("y1_last2", got_carry, want_carry)):
         assert got.shape == want.shape and got.dtype == torch.bfloat16, (name, got.shape, want.shape)
         err = (got.float() - want.float()).abs()
-        bad = (err > TOL + TOL * want.float().abs()).sum().item()
+        bad = (err > bench.TOL + bench.TOL * want.float().abs()).sum().item()
         max_err = max(max_err, err.max().item())
-        assert bad == 0, f"tsm_conv_pair C={c} {name}: {bad} values outside rtol=atol={TOL}"
+        assert bad == 0, f"tsm_conv_pair C={c} {name}: {bad} values outside rtol=atol={bench.TOL}"
         assert torch.isfinite(got.float()).all()
 
     def two_k1():
@@ -207,12 +147,12 @@ def check_tsm_conv_pair(tsm, c: int, h: int, w: int, t: int = 4) -> dict:
     # yardstick only (the port never calls it): two cuDNN convs over the
     # pre-built mixed inputs, the second on the plain version's y1
     y1_plain = tsm.tsm_conv_plain(x, carries[0], carries[1], w1, b1, "relu6")
-    mix1, mix2 = built_mix(x, carries[0], carries[1]), built_mix(y1_plain, carries[2], carries[3])
-    w1_oihw, w2_oihw = oihw(w1), oihw(w2)
-    kernel_ms = time_ms(lambda: tsm.tsm_conv_pair(*args))
-    two_k1_ms = time_ms(two_k1)
-    plain_ms = time_ms(lambda: tsm.tsm_conv_pair_plain(*args))
-    library_ms = time_ms(lambda: (F.conv2d(mix1, w1_oihw, b1, padding=1), F.conv2d(mix2, w2_oihw, b2, padding=1)))
+    mix1, mix2 = bench.built_mix(x, carries[0], carries[1]), bench.built_mix(y1_plain, carries[2], carries[3])
+    w1_oihw, w2_oihw = bench.oihw(w1), bench.oihw(w2)
+    kernel_ms = bench.time_ms(lambda: tsm.tsm_conv_pair(*args))
+    two_k1_ms = bench.time_ms(two_k1)
+    plain_ms = bench.time_ms(lambda: tsm.tsm_conv_pair_plain(*args))
+    library_ms = bench.time_ms(lambda: (F.conv2d(mix1, w1_oihw, b1, padding=1), F.conv2d(mix2, w2_oihw, b2, padding=1)))
 
     flops = 2 * 2 * 9 * c * c * h * w * t
     nbytes = nbytes_of(x, *carries, w1, b1, w2, b2, got_y2, got_carry)
@@ -221,15 +161,15 @@ def check_tsm_conv_pair(tsm, c: int, h: int, w: int, t: int = 4) -> dict:
         "two_k1_ms": two_k1_ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "flops": flops, "bytes": nbytes,
     }
-    row.update(bound(flops, nbytes))
-    log(f"tsm_conv_pair C={c} {h}x{w} T={t}: max|err| {max_err:.4g} (rtol=atol={TOL}); "
+    row.update(bench.bound(flops, nbytes))
+    log(f"tsm_conv_pair C={c} {h}x{w} T={t}: max|err| {max_err:.4g} (rtol=atol={bench.TOL}); "
         f"kernel {kernel_ms:.4f} ms, two K1 launches {two_k1_ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"two cuDNN convs on the built mixes {library_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
         f"({row['bound_by']})")
     return row
 
 
-def check_conv_stack(cs, n_layers: int, with_bias: bool, shape=(4, 720, 1280)) -> dict:
+def check_conv_stack(cs, bench, n_layers: int, with_bias: bool, shape=(4, 720, 1280)) -> dict:
     """K4 against fused_conv_stack_plain on the card at the SRVGG body's
     shape: within 0.02 x max(|ref|max, 1), as the Pallas kernel's test."""
     from sharkshark_tpu_torch.ops import conv2d, prelu
@@ -262,23 +202,18 @@ def check_conv_stack(cs, n_layers: int, with_bias: bool, shape=(4, 720, 1280)) -
             y = prelu(conv2d(y, wt[l], None if b is None else b[l].to(x.dtype), padding=1), a[l])
         return y
 
-    kernel_ms = time_ms(lambda: cs.fused_conv_stack(x, wt, a, b))
-    plain_ms = time_ms(lambda: cs.fused_conv_stack_plain(x, wt, a, b), reps=5)
-    library_ms = time_ms(current_route)
+    kernel_ms = bench.time_ms(lambda: cs.fused_conv_stack(x, wt, a, b))
+    plain_ms = bench.time_ms(lambda: cs.fused_conv_stack_plain(x, wt, a, b), reps=5)
+    library_ms = bench.time_ms(current_route)
     flops = n_layers * 2 * 9 * 64 * 64 * n * h * w
     row = {"layers": n_layers, "bias": with_bias, "shape": [n, h, w, 64], "max_abs_err": max_err,
            "ref_max": scale, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "flops": flops, "bytes": nbytes_of(x, wt, a, b, got)}
-    row.update(bound(flops, row["bytes"]))
+    row.update(bench.bound(flops, row["bytes"]))
     log(f"{name} ({n},{h},{w},64) bf16: max|err| {max_err:.4g} (limit {0.02 * max(scale, 1.0):.4g}); "
         f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, conv2d+bias+prelu route "
         f"{library_ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     return row
-
-
-def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
-    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
-    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def smooth_flow(g, h: int, w: int, max_disp: float, dev) -> torch.Tensor:
@@ -290,7 +225,7 @@ def smooth_flow(g, h: int, w: int, max_disp: float, dev) -> torch.Tensor:
     return resize(coarse, (h, w), "bilinear") * max_disp
 
 
-def check_backward_warp(wp, h: int = 2880, w: int = 5120) -> list[dict]:
+def check_backward_warp(wp, bench, h: int = 2880, w: int = 5120) -> list[dict]:
     """K3 against backward_warp_plain on the card at the EGVSR path's
     shape, (1, 2880, 5120, 3) bf16 with a bf16 flow: a smooth flow within
     +-96 px, a rough uniform +-95 px flow, and the skip flag set, each in
@@ -332,9 +267,9 @@ def check_backward_warp(wp, h: int = 2880, w: int = 5120) -> list[dict]:
                 assert torch.equal(got, ref), f"backward_warp {name}: the skip did not copy x exactly"
             mismatch = (err > 0).float().mean().item()
 
-            kernel_ms = time_ms(lambda: wp.backward_warp_fast(x, flow, s2d_out=s2d, skip=skip))
-            plain_ms = time_ms(lambda: wp.backward_warp_plain(x, flow, s2d_out=s2d, skip=skip), reps=10)
-            library_ms = time_ms(lambda: F.grid_sample(x_nchw, grid, mode="bilinear",
+            kernel_ms = bench.time_ms(lambda: wp.backward_warp_fast(x, flow, s2d_out=s2d, skip=skip))
+            plain_ms = bench.time_ms(lambda: wp.backward_warp_plain(x, flow, s2d_out=s2d, skip=skip), reps=10)
+            library_ms = bench.time_ms(lambda: F.grid_sample(x_nchw, grid, mode="bilinear",
                                                        padding_mode="border", align_corners=True))
             # bytes the function must move: x and out once each, and the
             # flow unless the skip makes it unneeded; about 15 float32
@@ -345,7 +280,7 @@ def check_backward_warp(wp, h: int = 2880, w: int = 5120) -> list[dict]:
             row = {"case": name, "shape": [1, h, w, 3], "max_abs_err": max_err,
                    "mismatch_share": mismatch, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                    "library_ms": library_ms, "bytes": nbytes, "flops": flops}
-            row.update(bound(flops, nbytes, PEAK_F32_FLOPS))
+            row.update(bench.bound(flops, nbytes, bench.PEAK_F32_FLOPS))
             rows.append(row)
             log(f"backward_warp {name} (1,{h},{w},3) bf16: max|err| {max_err:.4g} (atol {WARP_TOL}), "
                 f"{100 * mismatch:.4f}% of values differ; kernel {kernel_ms:.4f} ms, plain "
@@ -835,14 +770,14 @@ def run_tile_upscale(counters, card: str, conv_stack: int) -> dict:
     return res
 
 
-def kernel_entry(name: str, source: str, replaces: str, launches: int, rows: list[dict]) -> dict:
+def kernel_entry(bench, name: str, source: str, replaces: str, launches: int, rows: list[dict]) -> dict:
     """One kernel of the `kernels` line: per launch, averaged over `rows`
     (the shapes the path gives it), with the bound of that same work."""
     def mean(key):
         return sum(r[key] for r in rows) / len(rows)
 
-    b = bound(sum(r["flops"] for r in rows), sum(r["bytes"] for r in rows),
-              rows[0].get("peak_flops", PEAK_BF16_FLOPS))
+    b = bench.bound(sum(r["flops"] for r in rows), sum(r["bytes"] for r in rows),
+                    rows[0].get("peak_flops", bench.PEAK_BF16_FLOPS))
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -864,6 +799,7 @@ def main() -> int:
     from sharkshark_tpu_torch.ops import conv_stack as cs
     from sharkshark_tpu_torch.ops import tsm_conv as tsm
     from sharkshark_tpu_torch.ops import warp as wp
+    from sharkshark_tpu_torch.tools import bench_tsm_conv as bench
     from sharkshark_tpu_torch.upscale import service as service_mod
 
     # 1. card and settings
@@ -893,10 +829,10 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
 
     # 3. kernels against their plain versions
-    rows = [check_tsm_conv(tsm, 64, 360, 640), check_tsm_conv(tsm, 128, 180, 320)]
-    pair_rows = [check_tsm_conv_pair(tsm, 64, 360, 640), check_tsm_conv_pair(tsm, 128, 180, 320)]
-    warp_rows = check_backward_warp(wp)
-    stack_rows = [check_conv_stack(cs, L, bias) for L in (1, 2, 4) for bias in (True, False)]
+    rows = [check_tsm_conv(tsm, bench, 64, 360, 640), check_tsm_conv(tsm, bench, 128, 180, 320)]
+    pair_rows = [check_tsm_conv_pair(tsm, bench, 64, 360, 640), check_tsm_conv_pair(tsm, bench, 128, 180, 320)]
+    warp_rows = check_backward_warp(wp, bench)
+    stack_rows = [check_conv_stack(cs, bench, L, bias) for L in (1, 2, 4) for bias in (True, False)]
 
     # 4. the denoise path: the service's defaults (the main path), both
     # routes on, and K1 alone with the layer-by-layer body as reference
@@ -939,15 +875,15 @@ def main() -> int:
     # that is off by default, from the run with the routes on
     stack_row = next(r for r in stack_rows if r["layers"] == stack_l and r["bias"])
     # K3 at the EGVSR path's own case: a smooth flow, s2d_out=4, no cut
-    warp_case = {**next(r for r in warp_rows if r["case"] == "smooth96 s2d4"), "peak_flops": PEAK_F32_FLOPS}
+    warp_case = {**next(r for r in warp_rows if r["case"] == "smooth96 s2d4"), "peak_flops": bench.PEAK_F32_FLOPS}
     kernels = [
-        kernel_entry("tsm_conv", "sharkshark_tpu_torch/csrc/tsm_conv.cu",
+        kernel_entry(bench, "tsm_conv", "sharkshark_tpu_torch/csrc/tsm_conv.cu",
                      "sharkshark_tpu/ops/pallas/tsm_conv.py:227", main_res["launches"]["tsm_conv"], rows),
-        kernel_entry("tsm_conv_pair", "sharkshark_tpu_torch/csrc/tsm_conv_pair.cu",
+        kernel_entry(bench, "tsm_conv_pair", "sharkshark_tpu_torch/csrc/tsm_conv_pair.cu",
                      "sharkshark_tpu/ops/pallas/tsm_conv.py:502", on_res["launches"]["tsm_conv_pair"], pair_rows),
-        kernel_entry("backward_warp", "sharkshark_tpu_torch/csrc/backward_warp.cu",
+        kernel_entry(bench, "backward_warp", "sharkshark_tpu_torch/csrc/backward_warp.cu",
                      "sharkshark_tpu/ops/pallas/warp_band.py:262", egvsr_res["launches"], [warp_case]),
-        kernel_entry("fused_conv_stack", "sharkshark_tpu_torch/csrc/conv_stack.cu",
+        kernel_entry(bench, "fused_conv_stack", "sharkshark_tpu_torch/csrc/conv_stack.cu",
                      "experiments/conv_stack.py:252", on_res["launches"]["fused_conv_stack"], [stack_row]),
     ]
     kernels[2]["cases"] = warp_rows

@@ -25,7 +25,7 @@ from .nn import conv2d, relu6
 
 __all__ = [
     "tsm_conv", "tsm_conv_plain", "tsm_conv_pair", "tsm_conv_pair_plain",
-    "launches", "pair_launches", "KERNEL_CHANNELS",
+    "kernel_schedule", "launches", "pair_launches", "KERNEL_CHANNELS",
 ]
 
 # kernel launches since import (or since a caller last reset them)
@@ -33,10 +33,12 @@ launches = 0
 pair_launches = 0
 
 KERNEL_CHANNELS = (64, 128)
-_ACT = {"relu": 1, "relu6": 2}
+_ACT = {"none": 0, "relu": 1, "relu6": 2}
 
 
 def _act(y: torch.Tensor, act: str) -> torch.Tensor:
+    if act == "none":
+        return y
     if act == "relu6":
         return relu6(y)
     if act == "relu":
@@ -131,6 +133,22 @@ def _launch(x, prev1, left0, w, b, act):
         raise RuntimeError(f"tsm_conv: CUDA kernel launch failed with cudaError_t {err}")
     launches += 1
     return out[:, 0] if squeeze else out
+
+
+def kernel_schedule(t: int, n: int, h: int, w: int, c: int) -> tuple[int, int]:
+    """(spatial tiles, blocks) of K1's persistent grid for a chunk of this
+    shape on the current CUDA device.  Each tile is computed by C/64
+    blocks, one per 64 output channels; each block walks its tiles."""
+    from . import _build
+
+    fn = _build.load("tsm_conv").tsm_conv_schedule
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    tiles, blocks = ctypes.c_int(), ctypes.c_int()
+    err = fn(t, n, h, w, c, ctypes.byref(tiles), ctypes.byref(blocks))
+    if err:
+        raise RuntimeError(f"tsm_conv_schedule failed with cudaError_t {err}")
+    return tiles.value, blocks.value
 
 
 def tsm_conv(

@@ -40,7 +40,7 @@ def _bf16(a):
 @pytest.mark.parametrize("t,c,act", [
     (1, 64, "relu6"), (2, 64, "relu6"), (4, 64, "relu6"),
     (1, 128, "relu6"), (2, 128, "relu6"), (4, 128, "relu6"),
-    (4, 64, "relu"), (2, 128, "relu"),
+    (4, 64, "relu"), (2, 128, "relu"), (2, 64, "none"), (3, 128, "none"),
 ])
 def test_plain_matches_pallas_interpret_bf16(t, c, act):
     x, center, left, wt, b = _mk(t, 16, 8, c, seed=t * 1000 + c)

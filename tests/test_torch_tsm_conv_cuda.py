@@ -1,8 +1,9 @@
 """The CUDA kernel behind sharkshark_tpu_torch/ops/tsm_conv.py against its
-plain PyTorch version on the card, at shapes beyond the main path's
-(T = 1..5, N = 1 and 2, ragged H and W, both activations, no bias), and
-the wrapper's refusals.  chip_smoke.py holds the kernel at the main
-path's own shapes.
+plain PyTorch version on the card, at T = 1..5, N = 1 and 2, H and W that
+its 16 x 16 tile does not divide, fewer tiles than SMs, the main path's
+shapes (more tiles than the persistent grid), each activation and no
+bias, and the wrapper's refusals.  chip_smoke.py also holds the kernel
+at the main path's shapes, and times it there.
 
 These tests need an NVIDIA GPU and nvcc, so they carry the `cuda` marker
 and skip on a host without CUDA.  On the card, without the JAX package:
@@ -50,6 +51,19 @@ def _inputs(dev, t, n, h, w, c, seed):
     (5, 2, 23, 18, 128, "relu6", True),
     (4, None, 20, 16, 64, "relu6", True),    # (T, H, W, C), no batch axis
     (2, None, 11, 47, 128, "relu", False),
+    # H and W that the 16 x 16 tile does not divide
+    (2, 1, 37, 45, 64, "relu6", True),
+    (3, 1, 29, 50, 128, "relu6", True),
+    # fewer tiles than SMs: one tile, one block (C=64) or one pair (C=128)
+    (1, 1, 9, 13, 128, "relu6", True),
+    # more tiles than the persistent grid: each block walks many tiles
+    (4, 1, 360, 640, 64, "relu6", True),
+    (4, 1, 180, 320, 128, "relu6", True),
+    # N=2 with no bias and each activation
+    (2, 2, 33, 70, 64, "none", False),
+    (3, 2, 21, 19, 128, "none", False),
+    (2, 2, 40, 66, 64, "relu", False),
+    (2, 2, 17, 35, 128, "relu6", False),
 ])
 def test_kernel_matches_plain(dev, t, n, h, w, c, act, bias):
     x, prev1, left0, wt, b = _inputs(dev, t, n, h, w, c, seed=t * 100 + c + h)

@@ -42,20 +42,29 @@ def _bf16(a):
     return torch.from_numpy(a).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("t,h,w,c", [(4, 16, 8, 64), (2, 24, 16, 128), (3, 16, 8, 64)])
-def test_plain_matches_pallas_interpret_bf16(t, h, w, c):
+def _check_against_pallas(t, h, w, c, act):
     x, carries, w1, b1, w2, b2 = _mk(t, h, w, c, seed=t * 10 + c)
     want_y2, want_carry = jtsm_conv_pair(
         jnp.asarray(x, jnp.bfloat16), *(jnp.asarray(a, jnp.bfloat16) for a in carries),
-        w1, b1, w2, b2, act="relu6", interpret=True)
+        w1, b1, w2, b2, act=act, interpret=True)
     got_y2, got_carry = tsm.tsm_conv_pair(_bf16(x), *(_bf16(a) for a in carries),
-                                          _bf16(w1), _bf16(b1), _bf16(w2), _bf16(b2), "relu6")
+                                          _bf16(w1), _bf16(b1), _bf16(w2), _bf16(b2), act)
     assert got_y2.shape == (t, h, w, c) and got_carry.shape == (2, h, w, c)
     assert got_y2.dtype == got_carry.dtype == torch.bfloat16
     np.testing.assert_allclose(got_y2.float().numpy(), np.asarray(want_y2).astype(np.float32),
                                rtol=0.06, atol=0.06)
     np.testing.assert_allclose(got_carry.float().numpy(), np.asarray(want_carry).astype(np.float32),
                                rtol=0.06, atol=0.06)
+
+
+@pytest.mark.parametrize("t,h,w,c", [(4, 16, 8, 64), (2, 24, 16, 128), (3, 16, 8, 64)])
+def test_plain_matches_pallas_interpret_bf16(t, h, w, c):
+    _check_against_pallas(t, h, w, c, "relu6")
+
+
+@pytest.mark.parametrize("t,h,w,c,act", [(3, 16, 8, 64, "none"), (2, 24, 16, 128, "relu")])
+def test_plain_matches_pallas_interpret_bf16_other_act(t, h, w, c, act):
+    _check_against_pallas(t, h, w, c, act)
 
 
 def _np(tree):

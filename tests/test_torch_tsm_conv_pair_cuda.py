@@ -56,6 +56,8 @@ def _inputs(dev, t, n, h, w, c, seed, bias=True):
     (4, None, 20, 29, 64, "relu6", True),    # (T, H, W, C), no batch axis
     (2, None, 11, 47, 128, "relu", False),
     (4, 1, 36, 64, 64, "relu6", True),       # tiles that divide H and W evenly
+    (3, 1, 21, 34, 64, "none", True),        # no activation
+    (2, 2, 19, 40, 128, "none", False),
 ])
 def test_kernel_matches_plain(dev, t, n, h, w, c, act, bias):
     args = _inputs(dev, t, n, h, w, c, seed=t * 100 + c + h, bias=bias)
