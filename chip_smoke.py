@@ -17,10 +17,13 @@ Phases (any failure exits non-zero, and nothing is caught):
      tsm_conv_pair) at the warm chunk's shapes (K1 also with its share
      of the bound and its persistent grid, blocks against tiles; K2
      beside two K1 launches), K3 (backward_warp) at EGVSR's, K4
-     (fused_conv_stack) at SRVGG's body for L = 1, 2, 4;
+     (fused_conv_stack, through tools/bench_conv_stack.py) at SRVGG's
+     body for L = 1 (the persistent kernel), 2, 4, with its share of the
+     bound and its grid;
   4. the denoise path at full width: first the warm step's ms/frame
      under each route (K1 or K2; the body layer by layer or through K4
-     at L = 1, 2, 4), then the port's EsrganUpscalerService, 720p ->
+     at L = 1, 2, 4; the skip rings updated in place, as the service
+     does, and, once, copied), then the port's EsrganUpscalerService, 720p ->
      1440p with BSVD-32 denoise and SRVGG general-x4v3 (the repo's
      minted weights), driven as the live pipeline drives it, with the
      kernel launch counts read around each run: with the service's
@@ -169,50 +172,19 @@ def check_tsm_conv_pair(tsm, bench, c: int, h: int, w: int, t: int = 4) -> dict:
     return row
 
 
-def check_conv_stack(cs, bench, n_layers: int, with_bias: bool, shape=(4, 720, 1280)) -> dict:
+def check_conv_stack(cs, bench_cs, n_layers: int, with_bias: bool) -> dict:
     """K4 against fused_conv_stack_plain on the card at the SRVGG body's
-    shape: within 0.02 x max(|ref|max, 1), as the Pallas kernel's test."""
-    from sharkshark_tpu_torch.ops import conv2d, prelu
-
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(3000 + n_layers)
-    n, h, w = shape
-    x = torch.randn((n, h, w, 64), generator=g, device=dev).to(torch.bfloat16)
-    wt = (torch.randn((n_layers, 3, 3, 64, 64), generator=g, device=dev) * 0.05).to(torch.bfloat16)
-    a = torch.linspace(0.1, 0.4, n_layers * 64, device=dev).reshape(n_layers, 64)
-    b = torch.randn((n_layers, 64), generator=g, device=dev) * 0.1 if with_bias else None
-
-    before = cs.launches
-    got = cs.fused_conv_stack(x, wt, a, b)
-    torch.cuda.synchronize()
-    assert cs.launches == before + 1, "the wrapper did not launch the kernel"
-    want = cs.fused_conv_stack_plain(x, wt, a, b)
-    assert got.shape == want.shape == x.shape and got.dtype == torch.bfloat16
-    max_err = (got.float() - want.float()).abs().max().item()
-    scale = want.float().abs().max().item()
-    name = f"fused_conv_stack L={n_layers} {'bias' if with_bias else 'no bias'}"
-    assert max_err <= 0.02 * max(scale, 1.0), f"{name}: max |err| {max_err} > 0.02 x max({scale}, 1)"
-    assert torch.isfinite(got.float()).all()
-    del want
-
-    def current_route():
-        # yardstick only: the layer-by-layer route (cuDNN conv with bias, PReLU)
-        y = x
-        for l in range(n_layers):
-            y = prelu(conv2d(y, wt[l], None if b is None else b[l].to(x.dtype), padding=1), a[l])
-        return y
-
-    kernel_ms = bench.time_ms(lambda: cs.fused_conv_stack(x, wt, a, b))
-    plain_ms = bench.time_ms(lambda: cs.fused_conv_stack_plain(x, wt, a, b), reps=5)
-    library_ms = bench.time_ms(current_route)
-    flops = n_layers * 2 * 9 * 64 * 64 * n * h * w
-    row = {"layers": n_layers, "bias": with_bias, "shape": [n, h, w, 64], "max_abs_err": max_err,
-           "ref_max": scale, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "flops": flops, "bytes": nbytes_of(x, wt, a, b, got)}
-    row.update(bench.bound(flops, row["bytes"]))
-    log(f"{name} ({n},{h},{w},64) bf16: max|err| {max_err:.4g} (limit {0.02 * max(scale, 1.0):.4g}); "
-        f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, conv2d+bias+prelu route "
-        f"{library_ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    shape, within 0.02 x max(|ref|max, 1) as the Pallas kernel's test,
+    then timed beside its plain version, the layer-by-layer route and its
+    bound (tools/bench_conv_stack.py's measurement), with its grid."""
+    row = bench_cs.measure(n_layers, with_bias)
+    n, h, w, _ = row["shape"]
+    row["tiles"], row["blocks"] = cs.kernel_schedule(n, h, w, n_layers)
+    log(f"fused_conv_stack L={n_layers} {'bias' if with_bias else 'no bias'} ({n},{h},{w},64) bf16: "
+        f"max|err| {row['max_abs_err']:.4g} (limit {bench_cs.TOL * max(row['ref_max'], 1.0):.4g}); "
+        f"kernel {row['kernel_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, conv2d+bias+prelu route "
+        f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+        f"{100 * row['bound_share']:.1f}% of the bound; {row['blocks']} blocks for {row['tiles']} tiles")
     return row
 
 
@@ -393,9 +365,11 @@ def run_main_path(service_mod, counters, card: str, tsm_pair: bool, conv_stack: 
 
 def time_denoise_routes(routes: list[dict], card: str, batch: int = 4, iters: int = 6) -> list[dict]:
     """The warm denoise step (steps.upscale_batch_denoise at 720p -> 1440p,
-    T=4, minted weights) in ms/frame under each route, host time around
-    `iters` synchronised warm steps, in two passes (forward, then
-    reversed) and the median of each route's two."""
+    T=4, minted weights) in ms/frame under each route (tsm_pair,
+    conv_stack, and inplace, the service's in-place skip rings, unless a
+    route sets it False), host time around `iters` synchronised warm
+    steps, in two passes (forward, then reversed) and the median of each
+    route's two."""
     from sharkshark_tpu_torch.models import bsvd, srvgg, torch_import
     from sharkshark_tpu_torch.upscale import steps
 
@@ -416,22 +390,21 @@ def time_denoise_routes(routes: list[dict], card: str, batch: int = 4, iters: in
             def sr_apply(p, x, L=r["conv_stack"]):
                 return srvgg.apply_down_rational(p, x, 2, 1, conv_stack=L)
 
+            kw = {"tsm_pair": r["tsm_pair"], "inplace": r.get("inplace", True)}
             state = steps.init_denoise_state(1, spec, device=dev)
             while state["t"] <= bsvd.SHIFT_NUM:  # cold chunks, then one warm
                 _, state = steps.upscale_batch_denoise(sr_apply, params, state, frames, spec,
-                                                       warm=state["t"] >= bsvd.SHIFT_NUM,
-                                                       tsm_pair=r["tsm_pair"])
+                                                       warm=state["t"] >= bsvd.SHIFT_NUM, **kw)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(iters):
-                _, state = steps.upscale_batch_denoise(sr_apply, params, state, frames, spec, warm=True,
-                                                       tsm_pair=r["tsm_pair"])
+                _, state = steps.upscale_batch_denoise(sr_apply, params, state, frames, spec, warm=True, **kw)
             torch.cuda.synchronize()
             times[i].append((time.perf_counter() - t0) / (iters * batch) * 1e3)
     rows = []
     for i, r in enumerate(routes):
         rows.append({**r, "warm_ms_per_frame": statistics.median(times[i]), "passes": times[i]})
-        log(f"warm denoise step, tsm_pair={r['tsm_pair']}, conv_stack={r['conv_stack']}: "
+        log(f"warm denoise step, {', '.join(f'{k}={v}' for k, v in r.items())}: "
             f"{rows[-1]['warm_ms_per_frame']:.3f} ms/frame (passes "
             + ", ".join(f"{v:.3f}" for v in times[i]) + f") on {card}")
     return rows
@@ -799,6 +772,7 @@ def main() -> int:
     from sharkshark_tpu_torch.ops import conv_stack as cs
     from sharkshark_tpu_torch.ops import tsm_conv as tsm
     from sharkshark_tpu_torch.ops import warp as wp
+    from sharkshark_tpu_torch.tools import bench_conv_stack as bench_cs
     from sharkshark_tpu_torch.tools import bench_tsm_conv as bench
     from sharkshark_tpu_torch.upscale import service as service_mod
 
@@ -832,13 +806,14 @@ def main() -> int:
     rows = [check_tsm_conv(tsm, bench, 64, 360, 640), check_tsm_conv(tsm, bench, 128, 180, 320)]
     pair_rows = [check_tsm_conv_pair(tsm, bench, 64, 360, 640), check_tsm_conv_pair(tsm, bench, 128, 180, 320)]
     warp_rows = check_backward_warp(wp, bench)
-    stack_rows = [check_conv_stack(cs, bench, L, bias) for L in (1, 2, 4) for bias in (True, False)]
+    stack_rows = [check_conv_stack(cs, bench_cs, L, bias) for L in (1, 2, 4) for bias in (True, False)]
 
     # 4. the denoise path: the service's defaults (the main path), both
     # routes on, and K1 alone with the layer-by-layer body as reference
     route_rows = time_denoise_routes(
         [{"tsm_pair": False, "conv_stack": 0}, {"tsm_pair": True, "conv_stack": 0}]
-        + [{"tsm_pair": False, "conv_stack": L} for L in (1, 2, 4)] + [routes_on], card)
+        + [{"tsm_pair": False, "conv_stack": L} for L in (1, 2, 4)] + [routes_on]
+        + [{**defaults, "inplace": False}], card)
     main_res, main_out = run_main_path(service_mod, counters, card, **defaults)
     on_res, on_out = (main_res, main_out) if defaults == routes_on else run_main_path(
         service_mod, counters, card, **routes_on)

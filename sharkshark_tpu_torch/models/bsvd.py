@@ -280,26 +280,31 @@ def _ps_batched(x: torch.Tensor, r: int) -> torch.Tensor:
     return y.reshape(t, n, *y.shape[1:])
 
 
-def _fifo(carry: torch.Tensor, chunk: torch.Tensor, base: int | None = None):
+def _fifo(carry: torch.Tensor, chunk: torch.Tensor, base: int | None = None, inplace: bool = False):
     """Skip FIFO: carry holds the D frames before the chunk.  Returns the
-    chunk-length window aligned D frames back, and the new carry.
+    chunk-length window aligned D frames back, the new carry, and a push
+    left to the caller (None when the push is done).
 
     base (global index of chunk[0]) switches to a RING layout: frame f
     lives at slot f % D, and pop/push are T-frame slices at base % D.
     Only valid when T divides D and base % D is T-aligned; chunk_step
     passes base only on warm steps, where the service's warm switch
     guarantees both.  The push writes a copy of the carry, so the state
-    passed in stays as it was."""
+    passed in stays as it was; with inplace, the ring is the carry itself
+    and the push is returned: the pop is a view of the slots it
+    overwrites, so the caller runs it after the pop's last use."""
     d = carry.shape[0]
     t = chunk.shape[0]
     if base is not None and d % t == 0:
         off = base % d
         pop = carry[off : off + t]
+        if inplace:
+            return pop, carry, lambda: carry[off : off + t].copy_(chunk)
         new = carry.clone()
         new[off : off + t] = chunk
-        return pop, new
+        return pop, new, None
     full = torch.cat([carry, chunk], dim=0)
-    return full[:t], full[t : t + d]
+    return full[:t], full[t : t + d], None
 
 
 def _residual3(y: torch.Tensor, skip1: torch.Tensor) -> torch.Tensor:
@@ -328,16 +333,16 @@ def ring_to_fifo_state(state: dict, cfg: BSVDConfig = BSVD_32) -> dict:
     return {**state, "temp1": fix(state["temp1"]), "temp2": fix(state["temp2"])}
 
 
-def _denblock_chunk(p, st, x, act, base, t_end, warm, tsm_pair):
+def _denblock_chunk(p, st, x, act, base, t_end, warm, tsm_pair, inplace):
     """One DenBlock over a chunk.  x: (T, N, H, W, in_ch) for frames
     [base, base+T); returns output frames [base-8, base+T-8)."""
     rb = base if warm else None  # ring FIFOs on warm steps only
-    skip1, st_s1 = _fifo(st["skip1"], x[..., :3], rb)
+    skip1, st_s1, push1 = _fifo(st["skip1"], x[..., :3], rb, inplace)
     x0 = _conv_batched(p["inc1"], _conv_batched(p["inc0"], x, act), act)
-    skip2, st_s2 = _fifo(st["skip2"], x0, rb)
+    skip2, st_s2, push2 = _fifo(st["skip2"], x0, rb, inplace)
     x1 = _conv_batched(p["down0"], x0, act, stride=2)
     x1, st_d0 = _mem_chunk(p["down0_mem"], st["down0"], x1, act, base, t_end, warm, tsm_pair)
-    skip3, st_s3 = _fifo(st["skip3"], x1)  # x1 frames [base-2, ...)
+    skip3, st_s3, _ = _fifo(st["skip3"], x1)  # x1 frames [base-2, ...)
     x2 = _conv_batched(p["down1"], x1, act, stride=2)
     x2, st_d1 = _mem_chunk(p["down1_mem"], st["down1"], x2, act, base - 2, t_end, warm, tsm_pair)
     u2, st_u2 = _mem_chunk(p["up2_mem"], st["up2"], x2, act, base - 4, t_end, warm, tsm_pair)
@@ -346,6 +351,10 @@ def _denblock_chunk(p, st, x, act, base, t_end, warm, tsm_pair):
     u1 = _ps_batched(_conv_batched(p["up1"], u1), 2)
     y = _conv_batched(p["outc1"], _conv_batched(p["outc0"], u1 + skip2, act))
     y = _residual3(y, skip1)
+    # the pops are used: the in-place pushes may overwrite their slots now
+    for push in (push1, push2):
+        if push is not None:
+            push()
     new_st = {
         "skip1": st_s1, "skip2": st_s2, "skip3": st_s3,
         "down0": st_d0, "down1": st_d1, "up2": st_u2, "up1": st_u1,
@@ -362,6 +371,7 @@ def chunk_step(
     t_end: int | None = None,
     warm: bool = False,
     tsm_pair: bool = False,
+    inplace: bool = False,
 ) -> tuple[torch.Tensor, dict]:
     """Denoise a chunk of T consecutive frames in one layer-major pass.
 
@@ -382,10 +392,19 @@ def chunk_step(
     tsm_pair=True runs each mem block of a warm chunk with T >= 2 as one
     K2 launch (ops/tsm_conv.py::tsm_conv_pair) in place of two K1
     launches: the same function, y1 kept on chip.  Cold and flush chunks
+    ignore it.
+
+    inplace=True lets a warm step write the T new frames into the
+    skip1/skip2 rings of `state` itself instead of into a copy of each
+    D-frame ring: the same outputs and state, bit for bit, but the state
+    passed in is consumed, so only its owner (the service, which threads
+    one state through its steps) may ask for it.  Cold and flush chunks
     ignore it."""
     if warm and t_end is not None:
         raise ValueError("warm chunk_step is live-stream only (t_end=None)")
     n0 = state["t"]
-    mid, st1 = _denblock_chunk(params["temp1"], state["temp1"], frames, cfg.act, n0, t_end, warm, tsm_pair)
-    y, st2 = _denblock_chunk(params["temp2"], state["temp2"], mid, cfg.act, n0 - 8, t_end, warm, tsm_pair)
+    mid, st1 = _denblock_chunk(params["temp1"], state["temp1"], frames, cfg.act, n0, t_end, warm,
+                               tsm_pair, inplace)
+    y, st2 = _denblock_chunk(params["temp2"], state["temp2"], mid, cfg.act, n0 - 8, t_end, warm,
+                             tsm_pair, inplace)
     return y, {"t": n0 + frames.shape[0], "temp1": st1, "temp2": st2}

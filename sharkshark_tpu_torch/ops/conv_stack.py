@@ -10,7 +10,9 @@ the Pallas kernel's function exactly.
 
 `fused_conv_stack` runs the plain version for a tensor on the CPU and the
 kernel for a tensor on a CUDA device; on CUDA it launches the kernel or
-raises, it never falls back.  `launches` counts kernel launches.
+raises, it never falls back.  `launches` counts kernel launches.  One
+layer (L = 1) runs a persistent kernel whose grid `kernel_schedule`
+reports; deeper stacks run one block per tile.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-__all__ = ["fused_conv_stack", "fused_conv_stack_plain", "launches", "CHANNELS", "L_MAX"]
+__all__ = ["fused_conv_stack", "fused_conv_stack_plain", "kernel_schedule", "launches", "CHANNELS", "L_MAX"]
 
 # kernel launches since import (or since a caller last reset it)
 launches = 0
@@ -90,6 +92,22 @@ def _launch(x, weights, alphas, bias):
         raise RuntimeError(f"fused_conv_stack: CUDA kernel launch failed with cudaError_t {err}")
     launches += 1
     return out
+
+
+def kernel_schedule(n: int, h: int, w: int, n_layers: int = 1) -> tuple[int, int]:
+    """(output tiles, blocks) of K4's grid for (n, h, w, 64) at depth
+    n_layers on the current CUDA device.  At L = 1 the blocks are
+    persistent and walk the tiles; deeper, one block computes one tile."""
+    from . import _build
+
+    fn = _build.load("conv_stack").conv_stack_schedule
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    tiles, blocks = ctypes.c_int(), ctypes.c_int()
+    err = fn(n, h, w, n_layers, ctypes.byref(tiles), ctypes.byref(blocks))
+    if err:
+        raise RuntimeError(f"conv_stack_schedule failed with cudaError_t {err}")
+    return tiles.value, blocks.value
 
 
 def fused_conv_stack(

@@ -6,8 +6,8 @@
 Runs steps.upscale_batch_denoise at the main path's shapes (720p ->
 1440p, T=4, bf16, the repo's minted SRVGG and BSVD-32 weights) on the
 service's routes (K1 per shift conv, the SRVGG body through K4 one
-layer a launch; --tsm-pair selects K2, --conv-stack L K4's depth, 0 the
-layer-by-layer body): four cold chunks to
+layer a launch, the skip rings updated in place; --tsm-pair selects K2,
+--conv-stack L K4's depth, 0 the layer-by-layer body): four cold chunks to
 reach the warm regime, then `--iters` warm steps, and prints one JSON
 object with
   - step_ms: device-synchronised host time per warm step,
@@ -105,7 +105,7 @@ def main() -> None:
         nonlocal state
         out, state = steps.upscale_batch_denoise(
             sr_apply, params, state, frames, spec, warm=state["t"] >= bsvd.SHIFT_NUM,
-            tsm_pair=args.tsm_pair)
+            tsm_pair=args.tsm_pair, inplace=True)
         return out
 
     with torch.inference_mode():

@@ -431,6 +431,9 @@ class EsrganUpscalerService(BaseUpscalerService):
                 warm=self._frames_seen >= bsvd.SHIFT_NUM,
                 sr_sub_batch=self._sr_sub,
                 tsm_pair=self.tsm_pair,
+                # the service owns its state: warm steps write the new
+                # frames into its skip rings without copying them
+                inplace=True,
             )
             self._frames_seen += len(frames)
             # remember the fed frames (pads included: they advance the BSVD

@@ -22,6 +22,7 @@ from sharkshark_tpu.models import srvgg as jsrvgg
 from sharkshark_tpu_torch.models import srvgg
 from sharkshark_tpu_torch.ops import _build
 from sharkshark_tpu_torch.ops import conv_stack as cs
+from sharkshark_tpu_torch.tools import bench_conv_stack, bench_tsm_conv
 from sharkshark_tpu_torch.upscale.service import EsrganUpscalerService
 
 # 64 features (what K4 takes), 4 body layers: groups of 3 + 1 at conv_stack=3
@@ -130,3 +131,17 @@ def test_other_devices_raise_instead_of_falling_back():
     with pytest.raises(ValueError, match="no kernel"):
         cs.fused_conv_stack(x, torch.empty((1, 3, 3, 64, 64), device="meta"),
                             torch.empty((1, 64), device="meta"))
+
+
+def test_bench_bound_at_the_body_shape():
+    """tools/bench_conv_stack.py's bound at SRVGG's body shape, (4, 720,
+    1280, 64) bf16: one layer moves x and out (0.94 GB, 0.2817 ms at 3.35
+    TB/s) in more time than its 2.72e11 FLOP take at 989 TFLOP/s; two
+    layers are operations-bound."""
+    flops, nbytes = bench_conv_stack.work()
+    assert flops == 2 * 9 * 64 * 64 * 4 * 720 * 1280
+    assert nbytes == 2 * (4 * 720 * 1280 * 64 * 2) + 9 * 64 * 64 * 2 + 2 * 64 * 4
+    one = bench_tsm_conv.bound(flops, nbytes)
+    assert one["bound_by"] == "bytes" and round(one["bound_ms"], 4) == 0.2817
+    two = bench_tsm_conv.bound(*bench_conv_stack.work(n_layers=2))
+    assert two["bound_by"] == "operations" and round(two["bound_ms"], 4) == 0.5496

@@ -1,7 +1,9 @@
 """The CUDA kernel behind sharkshark_tpu_torch/ops/conv_stack.py (K4)
 against its plain PyTorch version on the card: L = 1..L_MAX layers, with
-and without bias, at image sizes that no tile divides (N > 1), and the
-wrapper's refusals.  chip_smoke.py holds the kernel at SRVGG's own shape.
+and without bias, at image sizes that no tile divides (N > 1); one layer
+(the persistent kernel) at SRVGG's body shape, at the tile path's ragged
+276 x 276 tile and with fewer tiles than SMs; its grid (never more blocks than tiles); and the wrapper's refusals.
+chip_smoke.py holds the kernel at SRVGG's own shape too.
 
 These tests need an NVIDIA GPU and nvcc, so they carry the `cuda` marker
 and skip on a host without CUDA.  On the card, without the JAX package:
@@ -57,6 +59,39 @@ def test_kernel_matches_plain(dev, n_layers, n, h, w, bias):
     err = (got.float() - want.float()).abs().max().item()
     scale = want.float().abs().max().item()
     assert err <= 0.02 * max(scale, 1.0), (err, scale)
+
+
+@pytest.mark.parametrize("n,h,w,bias", [
+    (4, 720, 1280, True),   # SRVGG's body at 720p, micro-batch 4
+    (4, 720, 1280, False),
+    (1, 276, 276, True),    # a tile_upscale tile: 256 + 2 x 10 pad, 17.25 tiles a side
+    (1, 40, 60, True),      # 12 tiles, fewer than SMs
+    (2, 64, 100, False),    # 56 tiles over two images
+])
+def test_one_layer_matches_plain(dev, n, h, w, bias):
+    x, wt, a, b = _inputs(dev, 1, n, h, w, seed=h + w, bias=bias)
+    tiles, blocks = cs.kernel_schedule(n, h, w)
+    assert tiles == n * -(-h // 16) * -(-w // 16)
+    assert 1 <= blocks <= min(tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
+    before = cs.launches
+    got = cs.fused_conv_stack(x, wt, a, b)
+    torch.cuda.synchronize()
+    assert cs.launches == before + 1
+    want = cs.fused_conv_stack_plain(x, wt, a, b)
+    assert got.shape == want.shape == x.shape and got.dtype == torch.bfloat16
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    assert err <= 0.02 * max(scale, 1.0), (err, scale)
+
+
+@pytest.mark.parametrize("n,h,w", [(1, 1, 1), (3, 9, 7), (1, 16, 16), (4, 720, 1280), (64, 16, 16)])
+def test_schedule_never_launches_more_blocks_than_tiles(dev, n, h, w):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n_layers in range(1, cs.L_MAX + 1):
+        tiles, blocks = cs.kernel_schedule(n, h, w, n_layers)
+        assert 1 <= blocks <= tiles, (n_layers, tiles, blocks)
+        if n_layers == 1:
+            assert blocks == min(tiles, sms)
 
 
 def test_wrapper_refuses_what_the_kernel_cannot_take(dev):

@@ -129,3 +129,51 @@ def test_bsvd_chunk_step_tiny_stream():
 def test_bsvd_chunk_step_minted_stream(minted_bsvd):
     _, jp = minted_bsvd
     _run_stream(jp, jbsvd.BSVD_32, bsvd.BSVD_32, 16, 24, seed=4)
+
+
+def _rings(state):
+    return [state[b][k] for b in ("temp1", "temp2") for k in ("skip1", "skip2")]
+
+
+def test_bsvd_inplace_rings_match_the_copying_route():
+    """The service's warm step writes its new frames into the skip rings
+    in place (chunk_step(inplace=True)): over cold -> warm x 3 ->
+    ring_to_fifo_state -> flush it gives the copying route's outputs and
+    whole state bit for bit, keeps each skip1/skip2 ring's storage, and
+    the copying route leaves the state passed in as it was."""
+    tp = bsvd.init_params(torch.Generator().manual_seed(5), TINY_BSVD)
+    h, w, T = 16, 24, 4
+    rng = np.random.default_rng(6)
+    frames = torch.from_numpy(
+        rng.random((bsvd.SHIFT_NUM + 3 * T, 1, h, w, TINY_BSVD.in_ch)).astype(np.float32))
+    states = {inplace: bsvd.init_stream_state(1, h, w, TINY_BSVD) for inplace in (False, True)}
+
+    def same(path):
+        _assert_tree_close(bsvd.state_to_numpy(states[True]), bsvd.state_to_numpy(states[False]),
+                           atol=0, path=path)
+
+    for i in range(0, frames.shape[0], T):
+        warm = i >= bsvd.SHIFT_NUM
+        old, before = states[False], bsvd.state_to_numpy(states[False])
+        ptrs = [r.data_ptr() for r in _rings(states[True])]
+        y_copy, states[False] = bsvd.chunk_step(tp, old, frames[i : i + T], cfg=TINY_BSVD, warm=warm)
+        y_inplace, new = bsvd.chunk_step(tp, states[True], frames[i : i + T], cfg=TINY_BSVD,
+                                         warm=warm, inplace=True)
+        if warm:
+            assert [r.data_ptr() for r in _rings(new)] == ptrs, f"a ring moved @{i}"
+            assert all(a is b for a, b in zip(_rings(new), _rings(states[True])))
+        states[True] = new
+        assert torch.equal(y_inplace, y_copy), f"y@{i}"
+        same(f"state@{i}")
+        # the copying route's input state is untouched (a caller may reuse it)
+        _assert_tree_close(bsvd.state_to_numpy(old), before, atol=0, path=f"input state@{i}")
+    states = {k: bsvd.ring_to_fifo_state(s, TINY_BSVD) for k, s in states.items()}
+    same("fifo")
+    zeros = torch.zeros((T, 1, h, w, TINY_BSVD.in_ch))
+    for i in range(bsvd.SHIFT_NUM // T):
+        ys = {}
+        for k in states:
+            ys[k], states[k] = bsvd.chunk_step(tp, states[k], zeros, cfg=TINY_BSVD, t_end=frames.shape[0],
+                                               inplace=k)
+        assert torch.equal(ys[True], ys[False]), f"flush y@{i}"
+    same("flushed")
