@@ -16,10 +16,12 @@ Phases (any failure exits non-zero, and nothing is caught):
      bound from tools/bench_tsm_conv.py): K1 and K2 (tsm_conv,
      tsm_conv_pair) at the warm chunk's shapes (K1 also with its share
      of the bound and its persistent grid, blocks against tiles; K2
-     beside two K1 launches), K3 (backward_warp) at EGVSR's, K4
-     (fused_conv_stack, through tools/bench_conv_stack.py) at SRVGG's
-     body for L = 1 (the persistent kernel), 2, 4, with its share of the
-     bound and its grid;
+     beside two K1 launches), K3 (backward_warp, through
+     tools/bench_backward_warp.py) at EGVSR's, per call and back to back
+     (its device time), K4 (fused_conv_stack, through
+     tools/bench_conv_stack.py) at SRVGG's body for L = 1, 2, 4 (L
+     launches of the one-layer kernel), with its share of the bound and
+     its grid;
   4. the denoise path at full width: first the warm step's ms/frame
      under each route (K1 or K2; the body layer by layer or through K4
      at L = 1, 2, 4; the skip rings updated in place, as the service
@@ -70,11 +72,6 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 MINTED = ROOT / "weights" / "minted"
 PSNR_MIN = 35.0
-# K3 against its plain version in bf16: the kernel samples at u + dx, the
-# plain version through the normalised grid, up to ~1e-3 px apart at
-# W = 5120, so a value near a bf16 rounding step may round one ulp (2^-8
-# below 1.0) the other way: atol of two ulps
-WARP_TOL = 2.0**-7
 
 
 def log(msg: str) -> None:
@@ -178,86 +175,34 @@ def check_conv_stack(cs, bench_cs, n_layers: int, with_bias: bool) -> dict:
     then timed beside its plain version, the layer-by-layer route and its
     bound (tools/bench_conv_stack.py's measurement), with its grid."""
     row = bench_cs.measure(n_layers, with_bias)
+    assert row["launches_per_call"] == n_layers, f"K4 at L={n_layers}: {row['launches_per_call']} launches a call"
     n, h, w, _ = row["shape"]
     row["tiles"], row["blocks"] = cs.kernel_schedule(n, h, w, n_layers)
     log(f"fused_conv_stack L={n_layers} {'bias' if with_bias else 'no bias'} ({n},{h},{w},64) bf16: "
         f"max|err| {row['max_abs_err']:.4g} (limit {bench_cs.TOL * max(row['ref_max'], 1.0):.4g}); "
         f"kernel {row['kernel_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, conv2d+bias+prelu route "
         f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
-        f"{100 * row['bound_share']:.1f}% of the bound; {row['blocks']} blocks for {row['tiles']} tiles")
+        f"{100 * row['bound_share']:.1f}% of the bound; {n_layers} launches of {row['blocks']} blocks for "
+        f"{row['tiles']} tiles")
     return row
 
 
-def smooth_flow(g, h: int, w: int, max_disp: float, dev) -> torch.Tensor:
-    """EGVSR-like flow as tests/test_warp_band.py makes it: uniform
-    [-1, 1) on a coarse grid, bilinearly upsampled, times max_disp."""
-    from sharkshark_tpu_torch.ops import resize
-
-    coarse = torch.rand((1, max(h // 32, 2), max(w // 32, 2), 2), generator=g, device=dev) * 2 - 1
-    return resize(coarse, (h, w), "bilinear") * max_disp
-
-
-def check_backward_warp(wp, bench, h: int = 2880, w: int = 5120) -> list[dict]:
+def check_backward_warp(bench_warp) -> list[dict]:
     """K3 against backward_warp_plain on the card at the EGVSR path's
     shape, (1, 2880, 5120, 3) bf16 with a bf16 flow: a smooth flow within
     +-96 px, a rough uniform +-95 px flow, and the skip flag set, each in
-    the NHWC and the s2d_out=4 layouts."""
-    from sharkshark_tpu_torch.ops import space_to_depth
-
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(3)
-    x = torch.rand((1, h, w, 3), generator=g, device=dev).to(torch.bfloat16)
-    flows = {
-        "smooth96": smooth_flow(g, h, w, 96.0, dev).to(torch.bfloat16),
-        "rough95": ((torch.rand((1, h, w, 2), generator=g, device=dev) * 2 - 1) * 95).to(torch.bfloat16),
-    }
-    no, yes = torch.zeros(1, dtype=torch.bool, device=dev), torch.ones(1, dtype=torch.bool, device=dev)
-    cases = [("smooth96", no), ("rough95", no), ("smooth96", yes)]
-    # yardstick only (the port never calls it): F.grid_sample on the same
-    # x and flow, as the normalised grid it takes
-    iu = torch.linspace(-1.0, 1.0, w, device=dev)[None, None, :]
-    iv = torch.linspace(-1.0, 1.0, h, device=dev)[None, :, None]
-    x_nchw = x.permute(0, 3, 1, 2)
-    rows = []
-    for flow_name, skip in cases:
-        flow = flows[flow_name]
-        grid = torch.stack([iu + flow[..., 0].float() / ((w - 1) / 2),
-                            iv + flow[..., 1].float() / ((h - 1) / 2)], dim=-1).to(x.dtype)
-        for s2d in (0, 4):
-            before = wp.launches
-            got = wp.backward_warp_fast(x, flow, s2d_out=s2d, skip=skip)
-            torch.cuda.synchronize()
-            assert wp.launches == before + 1, "the wrapper did not launch the kernel"
-            want = wp.backward_warp_plain(x, flow, s2d_out=s2d, skip=skip)
-            assert got.shape == want.shape and got.dtype == want.dtype, (got.shape, want.shape)
-            err = (got.float() - want.float()).abs()
-            max_err = err.max().item()
-            name = f"{flow_name}{'+skip' if bool(skip) else ''} {'s2d4' if s2d else 'nhwc'}"
-            assert max_err <= WARP_TOL, f"backward_warp {name}: max |err| {max_err} > {WARP_TOL}"
-            if bool(skip):
-                ref = space_to_depth(x, s2d) if s2d else x
-                assert torch.equal(got, ref), f"backward_warp {name}: the skip did not copy x exactly"
-            mismatch = (err > 0).float().mean().item()
-
-            kernel_ms = bench.time_ms(lambda: wp.backward_warp_fast(x, flow, s2d_out=s2d, skip=skip))
-            plain_ms = bench.time_ms(lambda: wp.backward_warp_plain(x, flow, s2d_out=s2d, skip=skip), reps=10)
-            library_ms = bench.time_ms(lambda: F.grid_sample(x_nchw, grid, mode="bilinear",
-                                                       padding_mode="border", align_corners=True))
-            # bytes the function must move: x and out once each, and the
-            # flow unless the skip makes it unneeded; about 15 float32
-            # operations per output value, outside the tensor cores
-            used = (x, got, skip) if bool(skip) else (x, flow, got, skip)
-            nbytes = sum(a.numel() * a.element_size() for a in used)
-            flops = 0 if bool(skip) else 15 * got.numel()
-            row = {"case": name, "shape": [1, h, w, 3], "max_abs_err": max_err,
-                   "mismatch_share": mismatch, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-                   "library_ms": library_ms, "bytes": nbytes, "flops": flops}
-            row.update(bench.bound(flops, nbytes, bench.PEAK_F32_FLOPS))
-            rows.append(row)
-            log(f"backward_warp {name} (1,{h},{w},3) bf16: max|err| {max_err:.4g} (atol {WARP_TOL}), "
-                f"{100 * mismatch:.4f}% of values differ; kernel {kernel_ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, F.grid_sample {library_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
-                f"({row['bound_by']}, {nbytes / 1e6:.1f} MB)")
+    the NHWC and the s2d_out=4 layouts; timed per call and back to back
+    beside F.grid_sample and the bound (tools/bench_backward_warp.py's
+    measurement)."""
+    rows = bench_warp.measure()
+    for row in rows:
+        log(f"backward_warp {row['case']} {tuple(row['shape'])} bf16: max|err| {row['max_abs_err']:.4g} "
+            f"(atol {bench_warp.TOL}), {100 * row['mismatch_share']:.4f}% of values differ; kernel "
+            f"{row['kernel_ms']:.4f} ms a call, {row['device_ms']:.4f} ms back to back; plain "
+            f"{row['plain_ms']:.4f} ms; F.grid_sample {row['library_ms']:.4f} ms a call, "
+            f"{row['library_device_ms']:.4f} ms back to back; bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}, {row['bytes'] / 1e6:.1f} MB), {100 * row['bound_share']:.1f}% of it "
+            f"back to back")
     return rows
 
 
@@ -297,12 +242,12 @@ class Counters:
 def denoise_launches(cold: int, warm: int, flush: int, tsm_pair: bool, conv_stack: int) -> dict:
     """Kernel launches that a run of the denoise path implies: 16 K1 per
     cold, flush or (without tsm_pair) warm chunk, 8 K2 per warm chunk with
-    it, and ceil(32 / L) K4 per SRVGG apply (one per chunk) with
-    conv_stack = L."""
+    it, and 32 K4 per SRVGG apply (one per chunk), one a body layer, with
+    any conv_stack = L > 0."""
     chunks = cold + warm + flush
     return {"tsm_conv": 16 * (cold + flush + (0 if tsm_pair else warm)),
             "tsm_conv_pair": 8 * warm if tsm_pair else 0, "backward_warp": 0,
-            "fused_conv_stack": chunks * -(-32 // conv_stack) if conv_stack else 0}
+            "fused_conv_stack": chunks * 32 if conv_stack else 0}
 
 
 def run_main_path(service_mod, counters, card: str, tsm_pair: bool, conv_stack: int,
@@ -654,7 +599,7 @@ def run_sr_path(service_mod, counters, card: str, conv_stack: int, jobs: int = 8
         assert o.dtype == np.uint8 and o.shape[1:] == (1440, 2560, 3), (o.dtype, o.shape)
         assert min(f.std() for f in o) > 5, "an output frame is flat"
     want = {"tsm_conv": 0, "tsm_conv_pair": 0, "backward_warp": 0,
-            "fused_conv_stack": jobs * -(-32 // conv_stack) if conv_stack else 0}
+            "fused_conv_stack": jobs * 32 if conv_stack else 0}
     assert launches == want, f"SR-only path: launches {launches}, expected {want}"
     per_frame_s = (stamps[-1] - stamps[0]) / ((jobs - 1) * batch)
     res = {"frames": jobs * batch, "conv_stack": conv_stack, "launches": launches, "wall_s": wall,
@@ -704,8 +649,9 @@ def run_coalesced_requests(service_mod, counters, card: str, conv_stack: int, n:
 def run_tile_upscale(counters, card: str, conv_stack: int) -> dict:
     """tile_upscale over SRVGG on a (1, 720, 1280, 3) image, tile 256, pad
     10: 15 tiles of 276x276 through K4, against the same tiling with the
-    layer-by-layer body.  Run at K4's deepest stack, so its shrinking halo
-    meets tile edges that no tile size divides."""
+    layer-by-layer body.  Run at K4's deepest stack (4 layers a call, so
+    4 chained launches), on a 276x276 tile that 16x16 tiles do not
+    divide."""
     from sharkshark_tpu_torch.models import srvgg, torch_import
     from sharkshark_tpu_torch.ops import to_float
     from sharkshark_tpu_torch.upscale import tile_upscale
@@ -732,7 +678,7 @@ def run_tile_upscale(counters, card: str, conv_stack: int) -> dict:
             assert tuple(out.shape) == (1, 2880, 5120, 3), tuple(out.shape)
             assert torch.isfinite(out.float()).all()
             outs[L] = (out.float().clamp(0, 1) * 255).cpu().numpy()
-    assert launches == {conv_stack: -(-32 // conv_stack), 0: 0}, launches
+    assert launches == {conv_stack: 32, 0: 0}, launches  # one K4 launch a body layer
     value = psnr(outs[conv_stack], outs[0])
     assert value >= 40.0, f"tiled K4 route is {value:.3f} dB from the layer-by-layer route"
     res = {"shape": [1, 2880, 5120, 3], "tiles": 15, "k4_launches": launches[conv_stack],
@@ -772,6 +718,7 @@ def main() -> int:
     from sharkshark_tpu_torch.ops import conv_stack as cs
     from sharkshark_tpu_torch.ops import tsm_conv as tsm
     from sharkshark_tpu_torch.ops import warp as wp
+    from sharkshark_tpu_torch.tools import bench_backward_warp as bench_warp
     from sharkshark_tpu_torch.tools import bench_conv_stack as bench_cs
     from sharkshark_tpu_torch.tools import bench_tsm_conv as bench
     from sharkshark_tpu_torch.upscale import service as service_mod
@@ -805,7 +752,7 @@ def main() -> int:
     # 3. kernels against their plain versions
     rows = [check_tsm_conv(tsm, bench, 64, 360, 640), check_tsm_conv(tsm, bench, 128, 180, 320)]
     pair_rows = [check_tsm_conv_pair(tsm, bench, 64, 360, 640), check_tsm_conv_pair(tsm, bench, 128, 180, 320)]
-    warp_rows = check_backward_warp(wp, bench)
+    warp_rows = check_backward_warp(bench_warp)
     stack_rows = [check_conv_stack(cs, bench_cs, L, bias) for L in (1, 2, 4) for bias in (True, False)]
 
     # 4. the denoise path: the service's defaults (the main path), both
@@ -850,7 +797,7 @@ def main() -> int:
     # that is off by default, from the run with the routes on
     stack_row = next(r for r in stack_rows if r["layers"] == stack_l and r["bias"])
     # K3 at the EGVSR path's own case: a smooth flow, s2d_out=4, no cut
-    warp_case = {**next(r for r in warp_rows if r["case"] == "smooth96 s2d4"), "peak_flops": bench.PEAK_F32_FLOPS}
+    warp_case = next(r for r in warp_rows if r["case"] == "smooth96 s2d4")
     kernels = [
         kernel_entry(bench, "tsm_conv", "sharkshark_tpu_torch/csrc/tsm_conv.cu",
                      "sharkshark_tpu/ops/pallas/tsm_conv.py:227", main_res["launches"]["tsm_conv"], rows),
@@ -861,6 +808,7 @@ def main() -> int:
         kernel_entry(bench, "fused_conv_stack", "sharkshark_tpu_torch/csrc/conv_stack.cu",
                      "experiments/conv_stack.py:252", on_res["launches"]["fused_conv_stack"], [stack_row]),
     ]
+    kernels[2]["device_ms"] = warp_case["device_ms"]
     kernels[2]["cases"] = warp_rows
     kernels[2]["max_abs_err"] = max(r["max_abs_err"] for r in warp_rows)
     kernels[3]["cases"] = stack_rows

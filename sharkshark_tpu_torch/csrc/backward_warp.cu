@@ -12,9 +12,8 @@
 // one clamped too) are lerped in float32.  x is bf16 or float32 with
 // C = 1..4 channels; the flow is bf16 or float32; out has x's dtype.
 // Options:
-//   s > 1:  out is space_to_depth(warp(x), s), (N, H/s, W/s, s*s*C) with
-//           channel (dy*s + dx)*C + c: each thread writes its pixel to
-//           the permuted address, so the relayout costs no extra pass;
+//   s = 2, 4: out is space_to_depth(warp(x), s), (N, H/s, W/s, s*s*C)
+//           with channel (dy*s + dx)*C + c;
 //   skip:   a device bool; when set, out is x itself (in out's layout),
 //           copied exactly.  EGVSR's scene-cut test sets it on the device,
 //           so the host never waits for it.
@@ -22,19 +21,42 @@
 // Bound on an H100 SXM (3.35 TB/s), at the EGVSR path's shape
 // (1, 2880, 5120, 3), bf16 x and flow: x read once (88.5 MB), the flow
 // read once (59.0 MB), out written once (88.5 MB) -> 236 MB -> 70 us,
-// bytes-bound (about 15 flops per output value).  chip_smoke.py
-// recomputes it from the tensors it launches on.
+// bytes-bound (about 15 flops per output value).
+// tools/bench_backward_warp.py recomputes it from the tensors it times.
 //
 // Design.  The TPU kernel turns the gather into banded hat-matrix
 // products, with per-tile window bases, edge padding, three window sizes
 // and a gather fallback, because gathers are slow on a TPU.  On the card a
-// gather is four loads, so none of that is ported: one thread per output
-// pixel does four loads per channel and one lerp, exact for every flow.
-// A block covers 64 columns x 4 rows, so that for s = 4 its rows are one
-// s2d row and its writes land in one contiguous span.  Neighbouring
-// threads read neighbouring flow pairs (coalesced) and, for a smooth flow,
-// neighbouring source pixels.  Three-channel pixels are 6 bytes and not
-// aligned, so x is read and out written one element at a time.
+// gather is a few loads, so none of that is ported.  A 3-channel bf16
+// pixel is 6 unaligned bytes; read and written one value at a time that
+// is ~16 memory instructions a pixel.  So:
+//   - Gathers by span: a tap row's neighbour pair (x0, x1) is 2*C
+//     contiguous values (12 B for bf16 C = 3), read as the one or two
+//     (three for float32 C = 3) aligned 16-byte chunks that cover it and
+//     shifted into place with selects and funnel shifts.  At the right
+//     edge x1 = x0, and the second pixel read is unused.  A span whose
+//     chunks would run past the tensor's end (its last pixels) is read one
+//     value at a time, so no load leaves x.
+//   - Neighbouring lanes, neighbouring pixels: a warp owns a span of out
+//     (NHWC: 32 x 8 / sizeof(x) pixels; s2d: 16 output pixels, s x s
+//     blocks, 1.5 KB at s = 4, C = 3, bf16), and at each step its 32 lanes
+//     compute 32 neighbouring pixels of one row, so their gathers fall on
+//     few cache lines.  (Lanes that each own a whole group of pixels, 4 to
+//     8 pixels apart, measured no faster than one value per load.)
+//   - Each lane loads all its (dx, dy) pairs first, neighbouring lanes
+//     neighbouring pairs, so no gather waits on a flow load.
+//   - The values go to a per-warp stage in shared memory in out's layout,
+//     and the warp writes its span with 16-byte stores, contiguous.
+//   - The lerps in float32, each step rounded as the plain version rounds
+//     it, so the kernel and the plain version agree as before.
+//   - Locality: a 1-d grid in raster order, so the blocks in flight cover
+//     a band of consecutive output rows and their source band (±96 rows,
+//     192 x 5120 x 6 B = 5.9 MB) stays in the 50 MB L2.
+//   - The skip: the same path, with x's own values in place of the lerps.
+// What is left is the flow's own spread: a flow whose gradient is ~2 px
+// a pixel sends neighbouring lanes to different rows, and its gathers are
+// bound by the sectors they pull from L2, not by instructions.
+// x, the flow and out must be 16-byte aligned (the wrapper checks).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,23 +64,40 @@
 
 namespace {
 
-constexpr int BX = 64;
-constexpr int BY = 4;
+constexpr int THREADS = 128;
+constexpr int WARPS = THREADS / 32;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__host__ __device__ constexpr int gcd(int a, int b) { return b == 0 ? a : gcd(b, a % b); }
+
+template <typename T> __device__ __forceinline__ float to_f32(T v);
+template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v)
-{
-    return __float2bfloat16(v);
-}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) { return __float2bfloat16(v); }
 
-__device__ __forceinline__ float2 load_pair(const float* p) { return *reinterpret_cast<const float2*>(p); }
-__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p)
+// A (dx, dy) pair as loaded (bf16 pairs stay packed in one register
+// until used), and as floats.
+template <typename TF> struct Pair;
+template <> struct Pair<float> {
+    float2 v;
+    __device__ __forceinline__ void load(const float* p) { v = __ldg(reinterpret_cast<const float2*>(p)); }
+    __device__ __forceinline__ float2 get() const { return v; }
+};
+template <> struct Pair<__nv_bfloat16> {
+    __nv_bfloat162 v;
+    __device__ __forceinline__ void load(const __nv_bfloat16* p) { v = __ldg(reinterpret_cast<const __nv_bfloat162*>(p)); }
+    __device__ __forceinline__ float2 get() const { return __bfloat1622float2(v); }
+};
+
+// value k of a packed span: bf16 values two to a word (the first in the
+// low half), float32 one to a word
+template <typename T, int WORDS>
+__device__ __forceinline__ float value(const uint32_t (&w)[WORDS], int k)
 {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    if constexpr (sizeof(T) == 4) return __uint_as_float(w[k]);
+    else return __uint_as_float(k & 1 ? w[k >> 1] & 0xffff0000u : w[k >> 1] << 16);
 }
 
 // a * (1 - t) + b * t, each step rounded as the plain version rounds it
@@ -68,89 +107,242 @@ __device__ __forceinline__ float lerp(float a, float b, float t)
     return __fadd_rn(__fmul_rn(a, __fsub_rn(1.0f, t)), __fmul_rn(b, t));
 }
 
-template <typename TX, typename TF, int C>
-__global__ void __launch_bounds__(BX * BY)
-backward_warp_kernel(const TX* __restrict__ x, const TF* __restrict__ flow,
-                     const bool* __restrict__ skip, TX* __restrict__ out,
-                     int H, int W, int s)
+// The neighbour pair of one tap row: a = pixel x0, b = pixel x1 (= x0 at
+// the right edge), from p = &row[x0 * C].  x is 16-byte aligned, so a
+// pixel starts at most MISALIGN bytes into its 16-byte chunk.
+template <typename TX, int C>
+__device__ __forceinline__ void tap_pair(const TX* p, const TX* xend, bool edge, float (&a)[C], float (&b)[C])
 {
-    const int u = blockIdx.x * BX + threadIdx.x;
-    const int v = blockIdx.y * BY + threadIdx.y;
-    const int n = blockIdx.z;
-    if (u >= W || v >= H) return;
-
-    const int64_t plane = (int64_t)H * W;
-    const TX* xn = x + n * plane * C;
-    const int64_t pix = (int64_t)v * W + u;
-    // output address: NHWC for s == 1, else the s2d block's channel slot
-    int64_t o;
-    if (s == 1) {
-        o = (n * plane + pix) * C;
-    } else {
-        const int hs = H / s, ws = W / s;
-        o = (((int64_t)n * hs + v / s) * ws + u / s) * (s * s * C) + ((v % s) * s + (u % s)) * C;
-    }
-
-    if (skip != nullptr && *skip) {
+    constexpr int PB = C * (int)sizeof(TX);       // bytes of a pixel
+    constexpr int SB = 2 * PB;                    // bytes of the pair
+    constexpr int MISALIGN = 16 - gcd(PB, 16);
+    constexpr int CHUNKS = (MISALIGN + SB + 15) / 16;
+    constexpr int CW = 4 * CHUNKS;                // words loaded
+    constexpr int WORDS = SB / 4;                 // words of the pair, once shifted into place
+    const uintptr_t addr = reinterpret_cast<uintptr_t>(p);
+    const int off = (int)(addr & 15);
+    const uint4* base = reinterpret_cast<const uint4*>(addr - off);
+    const int chunks = (off + SB + 15) >> 4;
+    if (reinterpret_cast<uintptr_t>(base + chunks) > reinterpret_cast<uintptr_t>(xend)) {
+        // the tensor's last pixels: no vector may read past its end
 #pragma unroll
-        for (int c = 0; c < C; ++c) out[o + c] = xn[pix * C + c];
+        for (int c = 0; c < C; ++c) a[c] = to_f32(p[c]);
+#pragma unroll
+        for (int c = 0; c < C; ++c) b[c] = edge ? a[c] : to_f32(p[C + c]);
         return;
     }
+    uint32_t w[CW];
+#pragma unroll
+    for (int i = 0; i < CHUNKS; ++i) {
+        uint4 q = make_uint4(0u, 0u, 0u, 0u);
+        if (i < chunks) q = __ldg(base + i);
+        w[4 * i] = q.x, w[4 * i + 1] = q.y, w[4 * i + 2] = q.z, w[4 * i + 3] = q.w;
+    }
+    // shift left by off / 4 words (two select stages), then, for bf16 at
+    // an odd half-word, by 16 bits
+    auto at = [&](int k) { return k < CW ? w[k] : 0u; };
+    const int q = off >> 2;
+    uint32_t s1[WORDS + 2];
+#pragma unroll
+    for (int j = 0; j < WORDS + 2; ++j) s1[j] = q & 2 ? at(j + 2) : at(j);
+    uint32_t t[WORDS + 1];
+#pragma unroll
+    for (int j = 0; j < WORDS + 1; ++j) t[j] = q & 1 ? s1[j + 1] : s1[j];
+    if constexpr (sizeof(TX) == 2) {
+        if (off & 2) {
+#pragma unroll
+            for (int j = 0; j < WORDS; ++j) t[j] = __funnelshift_r(t[j], t[j + 1], 16);
+        }
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) a[c] = value<TX>(t, c);
+#pragma unroll
+    for (int c = 0; c < C; ++c) b[c] = edge ? a[c] : value<TX>(t, C + c);
+}
 
-    const float2 f = load_pair(flow + (n * plane + pix) * 2);
+// Output pixel (n, v, u) into dst (its C values in out's layout): x
+// sampled at (u + f.x, v + f.y), or, with copy, x[n, v, u] itself.
+template <typename TX, int C>
+__device__ __forceinline__ void warp_pixel(const TX* x, const TX* xend, float2 f, bool copy, int64_t plane,
+                                           int n, int v, int u, int H, int W, TX* dst)
+{
+    const TX* xn = x + n * plane * C;
+    if (copy) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) dst[c] = xn[((int64_t)v * W + u) * C + c];
+        return;
+    }
     // NaN clamps to 0 (fmaxf returns the other operand), +-inf to the edge
     const float fx = fminf(fmaxf((float)u + f.x, 0.0f), (float)(W - 1));
     const float fy = fminf(fmaxf((float)v + f.y, 0.0f), (float)(H - 1));
     const float x0f = floorf(fx), y0f = floorf(fy);
     const int x0 = (int)x0f, y0 = (int)y0f;
-    const int x1 = min(x0 + 1, W - 1), y1 = min(y0 + 1, H - 1);
+    const int y1 = min(y0 + 1, H - 1);
+    const bool edge = x0 == W - 1;
     const float wx = fx - x0f, wy = fy - y0f;
-
-    const TX* r0 = xn + (int64_t)y0 * W * C;
-    const TX* r1 = xn + (int64_t)y1 * W * C;
+    float a0[C], b0[C], a1[C], b1[C];
+    tap_pair<TX, C>(xn + ((int64_t)y0 * W + x0) * C, xend, edge, a0, b0);
+    tap_pair<TX, C>(xn + ((int64_t)y1 * W + x0) * C, xend, edge, a1, b1);
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-        const float top = lerp(to_f32(r0[x0 * C + c]), to_f32(r0[x1 * C + c]), wx);
-        const float bot = lerp(to_f32(r1[x0 * C + c]), to_f32(r1[x1 * C + c]), wx);
-        out[o + c] = from_f32<TX>(lerp(top, bot, wy));
+    for (int c = 0; c < C; ++c) dst[c] = from_f32<TX>(lerp(lerp(a0[c], b0[c], wx), lerp(a1[c], b1[c], wx), wy));
+}
+
+// The output values of a warp's span: NHWC, 32 x 8 / sizeof(TX) pixels
+// (8 * C bytes of out a lane, 256 * C a warp); s2d, 16 s x s blocks, s / 2
+// columns of 32 pixels a lane.  (At s = 4, 4 or 16 pixels a lane instead
+// of 8 measured slower on gentle flows.)
+template <typename TX, int C, int S>
+__host__ __device__ constexpr int span_values() { return S == 1 ? 32 * (8 / (int)sizeof(TX)) * C : 16 * S * S * C; }
+
+// Steps (u, v, n) `step` pixels (or blocks) on in raster order, image
+// after image.
+__device__ __forceinline__ void advance(int& u, int& v, int& n, int step, int W, int H)
+{
+    u += step;
+    while (u >= W) {
+        u -= W;
+        if (++v == H) v = 0, ++n;
     }
 }
 
-template <typename TX, typename TF>
-cudaError_t launch(const void* x, const void* flow, const void* skip, void* out,
-                   int N, int H, int W, int C, int s, cudaStream_t stream)
+template <typename TX, typename TF, int C, int S>
+__global__ void __launch_bounds__(THREADS)
+backward_warp_kernel(const TX* __restrict__ x, const TF* __restrict__ flow, const bool* __restrict__ skip,
+                     TX* __restrict__ out, int N, int H, int W)
 {
-    dim3 grid((W + BX - 1) / BX, (H + BY - 1) / BY, N);
-    dim3 block(BX, BY);
+    constexpr int VALS = span_values<TX, C, S>();
+    constexpr int CHUNKS = VALS * (int)sizeof(TX) / 16;
+    __shared__ __align__(16) TX stage[WARPS][VALS];
+    const int lane = threadIdx.x & 31;
+    TX* st = stage[threadIdx.x >> 5];
+    const int64_t span = (int64_t)blockIdx.x * WARPS + (threadIdx.x >> 5);
+    const int64_t plane = (int64_t)H * W;
+    const int64_t values = N * plane * C;  // of x, and of out
+    const int64_t first = span * VALS;     // the span's first output value
+    if (first >= values) return;
+    const bool copy = skip != nullptr && *skip;
+    const TX* xend = x + values;
+
+    // Lane l computes the span's pixels l, l + 32, l + 64, ... of each row
+    // it covers, so a warp's gathers read neighbouring source pixels; the
+    // values go to the stage in out's order.  A lane loads all its (dx, dy)
+    // pairs first, so that no gather waits for a flow load.
+    if constexpr (S == 1) {
+        constexpr int G = VALS / 32 / C;  // pixels a lane computes
+        const int64_t p = first / C + lane;
+        const int n0 = (int)(p / plane);
+        const int64_t r = p - n0 * plane;
+        const int v0 = (int)(r / W), u0 = (int)(r - (int64_t)v0 * W);
+        Pair<TF> f[G];
+        if (!copy) {
+#pragma unroll
+            for (int i = 0; i < G; ++i)
+                if (p + i * 32 < N * plane) f[i].load(flow + 2 * (p + i * 32));
+        }
+        int n = n0, v = v0, u = u0;
+#pragma unroll
+        for (int i = 0; i < G; ++i) {
+            if (n < N) warp_pixel<TX, C>(x, xend, f[i].get(), copy, plane, n, v, u, H, W, st + (i * 32 + lane) * C);
+            advance(u, v, n, 32, W, H);
+        }
+    } else {
+        // the span is 16 blocks in raster order; lane l computes column
+        // (j * 32 + l) of the span's S-row strip, for each j and row dy
+        constexpr int J = S / 2;
+        const int hs = H / S, ws = W / S;
+        const int64_t g = first / (S * S * C) + lane / S;
+        int n[J], by[J], bx[J];
+        n[0] = (int)(g / ((int64_t)hs * ws));
+        const int64_t r = g - (int64_t)n[0] * hs * ws;
+        by[0] = (int)(r / ws), bx[0] = (int)(r - (int64_t)by[0] * ws);
+#pragma unroll
+        for (int j = 1; j < J; ++j) {
+            n[j] = n[j - 1], by[j] = by[j - 1], bx[j] = bx[j - 1];
+            advance(bx[j], by[j], n[j], 32 / S, ws, hs);
+        }
+        const int dx = lane % S;
+        Pair<TF> f[J][S];
+        if (!copy) {
+#pragma unroll
+            for (int j = 0; j < J; ++j)
+#pragma unroll
+                for (int dy = 0; dy < S; ++dy)
+                    if (n[j] < N) f[j][dy].load(flow + 2 * (n[j] * plane + (int64_t)(by[j] * S + dy) * W + bx[j] * S + dx));
+        }
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+            if (n[j] >= N) continue;
+            TX* dst = st + ((j * 32 + lane) / S) * (S * S * C) + dx * C;
+#pragma unroll
+            for (int dy = 0; dy < S; ++dy)
+                warp_pixel<TX, C>(x, xend, f[j][dy].get(), copy, plane, n[j], by[j] * S + dy, bx[j] * S + dx, H, W,
+                                  dst + dy * S * C);
+        }
+    }
+    __syncwarp();
+    // the span to out: 16-byte chunks, a warp's stores contiguous
+    TX* o = out + first;
+    if (first + VALS <= values) {
+#pragma unroll
+        for (int k = lane; k < CHUNKS; k += 32)
+            reinterpret_cast<uint4*>(o)[k] = reinterpret_cast<const uint4*>(st)[k];
+    } else {
+        for (int64_t k = lane; first + k < values; k += 32) o[k] = st[k];
+    }
+}
+
+template <typename TX, typename TF, int C>
+cudaError_t launch_c(const void* x, const void* flow, const void* skip, void* out, int N, int H, int W, int s,
+                     cudaStream_t stream)
+{
     auto xp = static_cast<const TX*>(x);
     auto fp = static_cast<const TF*>(flow);
     auto sp = static_cast<const bool*>(skip);
     auto op = static_cast<TX*>(out);
-    switch (C) {
-        case 1: backward_warp_kernel<TX, TF, 1><<<grid, block, 0, stream>>>(xp, fp, sp, op, H, W, s); break;
-        case 2: backward_warp_kernel<TX, TF, 2><<<grid, block, 0, stream>>>(xp, fp, sp, op, H, W, s); break;
-        case 3: backward_warp_kernel<TX, TF, 3><<<grid, block, 0, stream>>>(xp, fp, sp, op, H, W, s); break;
-        case 4: backward_warp_kernel<TX, TF, 4><<<grid, block, 0, stream>>>(xp, fp, sp, op, H, W, s); break;
+    const int64_t values = (int64_t)N * H * W * C;
+    const int64_t per_block = (int64_t)WARPS * (s == 1   ? span_values<TX, C, 1>()
+                                                : s == 2 ? span_values<TX, C, 2>()
+                                                         : span_values<TX, C, 4>());
+    const int64_t blocks = (values + per_block - 1) / per_block;
+    if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+    switch (s) {
+        case 1: backward_warp_kernel<TX, TF, C, 1><<<(unsigned)blocks, THREADS, 0, stream>>>(xp, fp, sp, op, N, H, W); break;
+        case 2: backward_warp_kernel<TX, TF, C, 2><<<(unsigned)blocks, THREADS, 0, stream>>>(xp, fp, sp, op, N, H, W); break;
+        case 4: backward_warp_kernel<TX, TF, C, 4><<<(unsigned)blocks, THREADS, 0, stream>>>(xp, fp, sp, op, N, H, W); break;
         default: return cudaErrorInvalidValue;
     }
     return cudaGetLastError();
+}
+
+template <typename TX, typename TF>
+cudaError_t launch(const void* x, const void* flow, const void* skip, void* out, int N, int H, int W, int C, int s,
+                   cudaStream_t stream)
+{
+    switch (C) {
+        case 1: return launch_c<TX, TF, 1>(x, flow, skip, out, N, H, W, s, stream);
+        case 2: return launch_c<TX, TF, 2>(x, flow, skip, out, N, H, W, s, stream);
+        case 3: return launch_c<TX, TF, 3>(x, flow, skip, out, N, H, W, s, stream);
+        case 4: return launch_c<TX, TF, 4>(x, flow, skip, out, N, H, W, s, stream);
+        default: return cudaErrorInvalidValue;
+    }
 }
 
 }  // namespace
 
 // C interface for ctypes.  x_dtype and flow_dtype: 0 float32, 1 bf16.
 // skip: a device bool, or null for no skip.  s: 1 for NHWC out, else the
-// space_to_depth factor (it must divide H and W).  Returns the
-// cudaError_t of the launch (0 on success); unsupported arguments return
-// cudaErrorInvalidValue.
+// space_to_depth factor, 2 or 4 (it must divide H and W).  x, flow and
+// out 16-byte aligned.  Returns the cudaError_t of the launch (0 on
+// success); unsupported arguments return cudaErrorInvalidValue.
 extern "C" int backward_warp(const void* x, const void* flow, const void* skip, void* out,
                              int N, int H, int W, int C, int s, int x_dtype, int flow_dtype,
                              void* stream)
 {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (N < 1 || N > 65535 || H < 1 || W < 1 || C < 1 || C > 4 || s < 1 || H % s || W % s)
+    if (N < 1 || H < 1 || W < 1 || C < 1 || C > 4 || (s != 1 && s != 2 && s != 4) || H % s || W % s)
         return (int)cudaErrorInvalidValue;
-    if ((H + BY - 1) / BY > 65535) return (int)cudaErrorInvalidValue;
+    if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(flow) | reinterpret_cast<uintptr_t>(out)) & 15)
+        return (int)cudaErrorInvalidValue;
     if (x_dtype == 1 && flow_dtype == 1)
         return (int)launch<__nv_bfloat16, __nv_bfloat16>(x, flow, skip, out, N, H, W, C, s, st);
     if (x_dtype == 1 && flow_dtype == 0)

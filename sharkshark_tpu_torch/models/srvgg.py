@@ -9,10 +9,10 @@ a plain dict of tensors: {"convs": [{"w": HWIO, "b"}], "acts":
 [{"alpha"}], "tail": {"w", "b"}}, the JAX package's pytree layout.
 
 `conv_stack=L` (L >= 1) runs the body's 64 -> 64 conv + bias + PReLU
-layers (convs[1:]) through K4 (ops/conv_stack.py), L layers per launch,
-the last group shorter; each layer then rounds once, after its PReLU,
-where the layer-by-layer route rounds the conv, the bias add and the
-PReLU each to the compute dtype.
+layers (convs[1:]) through K4 (ops/conv_stack.py), L layers a call (one
+kernel launch a layer), the last group shorter; each layer then rounds
+once, after its PReLU, where the layer-by-layer route rounds the conv,
+the bias add and the PReLU each to the compute dtype.
 """
 
 from __future__ import annotations
@@ -45,9 +45,9 @@ class SRVGGConfig(NamedTuple):
 
 GENERAL_X4V3 = SRVGGConfig(num_conv=32)
 
-# K4's layers per launch on the body where the config allows it: of
-# L = 1, 2, 4, L = 1 measured the fastest warm denoise step on an H100,
-# and no slower than the layer-by-layer body (PERF.md)
+# K4's layers a call on the body where the config allows it: of L = 1, 2,
+# 4, L = 1 measured the fastest warm denoise step on an H100, and no
+# slower than the layer-by-layer body (PERF.md)
 DEFAULT_CONV_STACK = 1
 
 
@@ -124,7 +124,7 @@ def apply(
     """x: (N, H, W, in_ch) in [0,1] -> (N, H*s, W*s, out_ch).  The nearest
     residual is added in pre-shuffle channel space (nearest_s(x) ==
     pixel_shuffle(repeat(x, s^2)) exactly), so one HR tensor is made.
-    conv_stack: K4's layers per launch for the body (0 = layer by layer)."""
+    conv_stack: K4's layers a call for the body (0 = layer by layer)."""
     y = _body(params, x, cfg, conv_stack)
     if cfg.num_in_ch == cfg.num_out_ch:
         y = y + x.to(y.dtype).repeat_interleave(cfg.upscale**2, dim=-1)

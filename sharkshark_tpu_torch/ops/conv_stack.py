@@ -1,8 +1,7 @@
-"""L x [3x3 SAME conv + bias + PReLU] at 64 channels in one launch: the
-CUDA kernel `csrc/conv_stack.cu` (K4, counterpart of the JAX package's
-Pallas kernel experiments/conv_stack.py::fused_conv_stack) and its plain
-PyTorch version.  SRVGG's body runs through it (models/srvgg.py,
-`conv_stack=L`).
+"""L x [3x3 SAME conv + bias + PReLU] at 64 channels: the CUDA kernel
+`csrc/conv_stack.cu` (K4, counterpart of the JAX package's Pallas kernel
+experiments/conv_stack.py::fused_conv_stack) and its plain PyTorch
+version.  SRVGG's body runs through it (models/srvgg.py, `conv_stack=L`).
 
 Each layer accumulates in float32, adds its bias, applies PReLU with
 per-channel alpha, and rounds once to x's dtype; with bias=None this is
@@ -10,9 +9,10 @@ the Pallas kernel's function exactly.
 
 `fused_conv_stack` runs the plain version for a tensor on the CPU and the
 kernel for a tensor on a CUDA device; on CUDA it launches the kernel or
-raises, it never falls back.  `launches` counts kernel launches.  One
-layer (L = 1) runs a persistent kernel whose grid `kernel_schedule`
-reports; deeper stacks run one block per tile.
+raises, it never falls back.  The kernel computes one layer; a call runs
+L layers as L launches of it on the current stream (one C call), so
+`launches` grows by L a call.  `kernel_schedule` reports each launch's
+persistent grid.
 """
 
 from __future__ import annotations
@@ -28,7 +28,9 @@ __all__ = ["fused_conv_stack", "fused_conv_stack_plain", "kernel_schedule", "lau
 launches = 0
 
 CHANNELS = 64
-L_MAX = 4  # the kernel's deepest stack (csrc/conv_stack.cu: two layer buffers fit shared memory)
+# the deepest stack a call takes: the depths SRVGG's `conv_stack` and the
+# tile path run and the tests cover (chained launches set no limit)
+L_MAX = 4
 
 
 def _check_shapes(x, weights, alphas, bias):
@@ -63,10 +65,28 @@ def fused_conv_stack_plain(
     return y.contiguous()
 
 
+_kernels = None
+
+
+def _kernel_fns():
+    """The kernel's C functions (the stack, the schedule), built, loaded
+    and typed once per process."""
+    global _kernels
+    if _kernels is None:
+        from . import _build
+
+        lib = _build.load("conv_stack")
+        stack, sched = lib.conv_stack_bf16, lib.conv_stack_schedule
+        stack.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        stack.restype = ctypes.c_int
+        sched.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
+        sched.restype = ctypes.c_int
+        _kernels = (stack, sched)
+    return _kernels
+
+
 def _launch(x, weights, alphas, bias):
     global launches
-    from . import _build
-
     n_layers = _check_shapes(x, weights, alphas, bias)
     if n_layers > L_MAX:
         raise ValueError(f"fused_conv_stack: the CUDA kernel takes L <= {L_MAX} layers, got {n_layers}")
@@ -80,29 +100,24 @@ def _launch(x, weights, alphas, bias):
     b = (torch.zeros_like(a) if bias is None else bias.to(dev, torch.float32)).contiguous()
     n, h, wd, _ = x.shape
     out = torch.empty_like(x)
-    lib = _build.load("conv_stack")
-    fn = lib.conv_stack_bf16
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    # the layers take turns writing out and this buffer, the last one out
+    scratch = torch.empty_like(x) if n_layers > 1 else None
+    fn = _kernel_fns()[0]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), a.data_ptr(), out.data_ptr(),
-                 n, h, wd, n_layers, stream)
+                 0 if scratch is None else scratch.data_ptr(), n, h, wd, n_layers, stream)
     if err:
         raise RuntimeError(f"fused_conv_stack: CUDA kernel launch failed with cudaError_t {err}")
-    launches += 1
+    launches += n_layers
     return out
 
 
 def kernel_schedule(n: int, h: int, w: int, n_layers: int = 1) -> tuple[int, int]:
-    """(output tiles, blocks) of K4's grid for (n, h, w, 64) at depth
-    n_layers on the current CUDA device.  At L = 1 the blocks are
-    persistent and walk the tiles; deeper, one block computes one tile."""
-    from . import _build
-
-    fn = _build.load("conv_stack").conv_stack_schedule
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
-    fn.restype = ctypes.c_int
+    """(output tiles, blocks) of each of K4's launches for (n, h, w, 64)
+    at depth n_layers on the current CUDA device: persistent blocks that
+    walk the tiles, the same grid at every depth."""
+    fn = _kernel_fns()[1]
     tiles, blocks = ctypes.c_int(), ctypes.c_int()
     err = fn(n, h, w, n_layers, ctypes.byref(tiles), ctypes.byref(blocks))
     if err:

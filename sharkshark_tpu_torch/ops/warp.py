@@ -44,6 +44,9 @@ launches = 0
 # the C interface
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHANNELS = 4
+# the space_to_depth factors the kernel is built for (1 = NHWC): its lanes
+# split an s-row strip of s x s blocks into s / 2 columns of 32 pixels
+S2D_FACTORS = (1, 2, 4)
 
 
 def _linspace(n: int, device) -> torch.Tensor:
@@ -134,10 +137,24 @@ def _check(name: str, a: torch.Tensor, shape: tuple | None, device: torch.device
         raise ValueError(f"backward_warp: {name} must be contiguous")
 
 
+_kernel = None
+
+
+def _kernel_fn():
+    """The kernel's C function, built, loaded and typed once per process."""
+    global _kernel
+    if _kernel is None:
+        from . import _build
+
+        fn = _build.load("backward_warp").backward_warp
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _kernel = fn
+    return _kernel
+
+
 def _launch(x, flow, s2d_out, skip):
     global launches
-    from . import _build
-
     if x.ndim != 4:
         raise ValueError(f"backward_warp: x must be (N, H, W, C), got {tuple(x.shape)}")
     n, h, w, c = x.shape
@@ -150,20 +167,21 @@ def _launch(x, flow, s2d_out, skip):
                             f"{sorted(map(str, KERNEL_DTYPES))}, got {a.dtype}")
     _check("x", x, (n, h, w, c), dev)
     _check("flow", flow, (n, h, w, 2), dev)
-    # the kernel reads each pixel's (dx, dy) as one 2-element vector
-    if flow.data_ptr() % (2 * flow.element_size()):
-        raise ValueError("backward_warp: flow must be aligned to one (dx, dy) pair")
+    # the kernel reads x and the flow by aligned 16-byte vectors
+    for name, a in (("x", x), ("flow", flow)):
+        if a.data_ptr() % 16:
+            raise ValueError(f"backward_warp: {name} must be 16-byte aligned")
     s = s2d_out or 1
     if s < 1 or h % s or w % s:
         raise ValueError(f"backward_warp: s2d_out={s2d_out} must divide H={h} and W={w}")
+    if s not in S2D_FACTORS:
+        raise ValueError(f"backward_warp: the CUDA kernel takes s2d_out in {(0, *S2D_FACTORS)}, got {s2d_out}")
     if skip is not None:
         if skip.dtype != torch.bool or skip.numel() != 1:
             raise TypeError(f"backward_warp: skip must be one bool, got {skip.dtype} {tuple(skip.shape)}")
         _check("skip", skip, None, dev)
     out = torch.empty((n, h // s, w // s, s * s * c), dtype=x.dtype, device=dev)
-    fn = _build.load("backward_warp").backward_warp
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _kernel_fn()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(x.data_ptr(), flow.data_ptr(), 0 if skip is None else skip.data_ptr(),
@@ -184,7 +202,8 @@ def backward_warp_fast(
 ) -> torch.Tensor:
     """K3: the warp of backward_warp_plain, any flow, any N, H and W.  A
     CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    (x and flow float32 or bf16, contiguous, 1 to 4 channels) or raises.
+    (x and flow float32 or bf16, contiguous and 16-byte aligned, 1 to 4
+    channels, s2d_out 0, 1, 2 or 4) or raises.
     The kernel samples at u + dx directly, in float32, and returns x's
     dtype."""
     if x.device.type == "cpu":

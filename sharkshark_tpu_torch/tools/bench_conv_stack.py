@@ -1,7 +1,8 @@
-"""K4, the fused conv + bias + PReLU kernel (csrc/conv_stack.cu), alone on
-one GPU at SRVGG's body shape: (4, 720, 1280, 64) bf16, L = 1, with bias.
+"""K4, the conv + bias + PReLU kernel (csrc/conv_stack.cu), alone on one
+GPU at SRVGG's body shape: (4, 720, 1280, 64) bf16, with bias, at L = 1
+(or each depth `--layers` names; L layers are L launches).
 
-    python -m sharkshark_tpu_torch.tools.bench_conv_stack [--reps 30] [--out FILE]
+    python -m sharkshark_tpu_torch.tools.bench_conv_stack [--layers 1 2 4] [--reps 30] [--out FILE]
 
 The kernel against fused_conv_stack_plain (within 0.02 x max(|ref|max,
 1), as the Pallas kernel's test), then the median of `--reps` CUDA-event
@@ -9,8 +10,8 @@ timings (one call per event pair) of the kernel, of the plain version and
 of the layer-by-layer route (cuDNN conv with bias, then PReLU: a yardstick
 here, which the body runs only with conv_stack=0), beside the bound and
 the kernel's share of it.  Timing and bound come from
-tools/bench_tsm_conv.py.  Prints one JSON object, with the card's name
-and power limit.  chip_smoke.py runs the same
+tools/bench_tsm_conv.py.  Prints one JSON object (a row per depth), with
+the card's name and power limit.  chip_smoke.py runs the same
 measurement (`measure`) at L = 1, 2 and 4.
 
 To time two versions of the kernel in one call, run this file as a
@@ -67,7 +68,8 @@ def measure(n_layers: int = 1, with_bias: bool = True, shape: tuple[int, int, in
     before = cs.launches
     got = cs.fused_conv_stack(x, wt, a, b)
     torch.cuda.synchronize()
-    assert cs.launches == before + 1, "the wrapper did not launch the kernel"
+    launches = cs.launches - before
+    assert launches > 0, "the wrapper did not launch the kernel"
     want = cs.fused_conv_stack_plain(x, wt, a, b)
     assert got.shape == want.shape == x.shape and got.dtype == torch.bfloat16
     max_err = (got.float() - want.float()).abs().max().item()
@@ -84,8 +86,9 @@ def measure(n_layers: int = 1, with_bias: bool = True, shape: tuple[int, int, in
         return y
 
     flops, nbytes = work(shape, n_layers, with_bias)
-    row = {"layers": n_layers, "bias": with_bias, "shape": [n, h, w, 64], "max_abs_err": max_err,
-           "ref_max": scale, "kernel_ms": time_ms(lambda: cs.fused_conv_stack(x, wt, a, b), reps),
+    row = {"layers": n_layers, "bias": with_bias, "shape": [n, h, w, 64], "launches_per_call": launches,
+           "max_abs_err": max_err, "ref_max": scale,
+           "kernel_ms": time_ms(lambda: cs.fused_conv_stack(x, wt, a, b), reps),
            "plain_ms": time_ms(lambda: cs.fused_conv_stack_plain(x, wt, a, b), max(reps // 6, 3)),
            "library_ms": time_ms(layer_by_layer, reps), "flops": flops, "bytes": nbytes,
            **bound(flops, nbytes)}
@@ -95,6 +98,7 @@ def measure(n_layers: int = 1, with_bias: bool = True, shape: tuple[int, int, in
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--layers", type=int, nargs="+", default=[1], help="depths L to time")
     ap.add_argument("--reps", type=int, default=30)
     ap.add_argument("--out", type=Path, help="also write the JSON object here")
     args = ap.parse_args()
@@ -106,7 +110,7 @@ def main() -> None:
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     res = {"card": card, "package": str(Path(sharkshark_tpu_torch.__file__).parent),
-           **measure(reps=args.reps)}
+           "rows": [measure(L, reps=args.reps) for L in args.layers]}
     text = json.dumps(res, indent=1)
     print(text)
     if args.out:

@@ -237,7 +237,7 @@ class EsrganUpscalerService(BaseUpscalerService):
     CUDA raises here, at construction.  tsm_pair: BSVD's warm mem blocks
     through K2 (bsvd.chunk_step); off, since K2 measured slower than two
     K1 launches.  conv_stack: the SRVGG body through K4, that many layers
-    per launch (srvgg.apply; 0 = layer by layer); None takes
+    a call (srvgg.apply; 0 = layer by layer); None takes
     srvgg.DEFAULT_CONV_STACK where K4 can run the config and 0 where it
     cannot; a number K4 cannot take for the config raises here.
     coalesce_max: merge queued same-shape requests into one dispatch

@@ -54,6 +54,23 @@ def test_plain_matches_pallas_interpret(interpret_mode, n_layers, shape):
     assert err <= 0.02 * max(np.abs(want).max(), 1.0), err
 
 
+@pytest.mark.parametrize("n_layers", [2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_plain_stack_is_its_layers_chained(n_layers, dtype):
+    """The function K4's L chained launches compute: the plain version at
+    L layers equals L one-layer plain calls, each on the last one's
+    output, bit for bit (each layer rounds to x's dtype once)."""
+    rng = np.random.default_rng(n_layers)
+    x = torch.from_numpy(rng.standard_normal((2, 11, 13, 64)).astype(np.float32)).to(dtype)
+    wt = torch.from_numpy((rng.standard_normal((n_layers, 3, 3, 64, 64)) * 0.05).astype(np.float32)).to(dtype)
+    a = torch.from_numpy(rng.uniform(0.05, 0.4, (n_layers, 64)).astype(np.float32))
+    b = torch.from_numpy((rng.standard_normal((n_layers, 64)) * 0.1).astype(np.float32))
+    y = x
+    for l in range(n_layers):
+        y = cs.fused_conv_stack_plain(y, wt[l : l + 1], a[l : l + 1], b[l : l + 1])
+    assert torch.equal(cs.fused_conv_stack(x, wt, a, b), y)
+
+
 def _params(seed):
     """Seeded port weights with random biases and alphas, and the same
     as numpy for the JAX package (its pytree layout is the same)."""

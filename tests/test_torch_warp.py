@@ -30,6 +30,7 @@ from sharkshark_tpu.ops.warp import backward_warp as jbackward_warp
 from sharkshark_tpu.ops.warp import grid_sample_bilinear as jgrid_sample
 from sharkshark_tpu_torch.ops import _build, space_to_depth
 from sharkshark_tpu_torch.ops import warp as wp
+from sharkshark_tpu_torch.tools import bench_backward_warp, bench_tsm_conv
 
 TIGHT = 2e-5
 
@@ -172,3 +173,18 @@ def test_other_devices_raise_instead_of_falling_back():
     x = torch.empty((1, 8, 8, 3), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         wp.backward_warp_fast(x, torch.empty((1, 8, 8, 2), device="meta"))
+
+
+def test_bench_bound_at_the_egvsr_shape():
+    """tools/bench_backward_warp.py's bound at the EGVSR path's shape,
+    (1, 2880, 5120, 3) bf16 with a bf16 flow: x and out once each and the
+    flow once, 236 MB, take 0.0704 ms at 3.35 TB/s, more than its 15
+    float32 operations a value take at 67 TFLOP/s; the skip moves x and
+    out only."""
+    flops, nbytes = bench_backward_warp.work()
+    assert nbytes == 2 * (2880 * 5120 * 3 * 2) + 2880 * 5120 * 2 * 2 + 1
+    assert round(nbytes / 1e6) == 236 and flops == 15 * 2880 * 5120 * 3
+    b = bench_tsm_conv.bound(flops, nbytes, bench_tsm_conv.PEAK_F32_FLOPS)
+    assert b["bound_by"] == "bytes" and round(b["bound_ms"], 4) == 0.0704
+    flops, nbytes = bench_backward_warp.work(skipped=True)
+    assert flops == 0 and nbytes == 2 * (2880 * 5120 * 3 * 2) + 1

@@ -1,7 +1,8 @@
 """The CUDA kernel behind sharkshark_tpu_torch/ops/warp.py::backward_warp_fast
 (K3) against its plain PyTorch version on the card, at shapes beyond the
-EGVSR path's (ragged H and W, N = 2, C = 1..4, float32 and bf16 x and
-flow, the NHWC and the s2d_out=4 layouts, the skip flag), and the
+EGVSR path's (ragged H and W, widths that no pixel group divides, N = 2,
+C = 1..4, float32 and bf16 x and flow, the NHWC, s2d_out=2 and s2d_out=4
+layouts, the skip flag, every tap on the tensor's last pixel), and the
 wrapper's refusals.  chip_smoke.py holds the kernel at the path's own
 shape, (1, 2880, 5120, 3) bf16.
 
@@ -80,6 +81,73 @@ def test_zero_flow_is_exact(dev):
     x, _ = _inputs(dev, 1, 15, 17, 3, torch.float32, torch.float32, 0.0, seed=8)
     got = wp.backward_warp_fast(x, torch.zeros((1, 15, 17, 2), device=dev))
     assert torch.equal(got, x)
+
+
+DTYPES = [torch.bfloat16, torch.float32]
+
+
+@pytest.mark.parametrize("xdt", DTYPES)
+@pytest.mark.parametrize("n,h,w,c", [
+    (1, 7, 13, 3),    # a warp owns 128 (bf16) or 64 (float32) pixels: no row here is whole spans
+    (2, 5, 37, 3),
+    (1, 3, 131, 1),
+    (3, 2, 2, 3),     # a group spans all three images, and the tensor's end cuts it
+])
+def test_widths_no_pixel_group_divides(dev, xdt, n, h, w, c):
+    x, flow = _inputs(dev, n, h, w, c, xdt, torch.bfloat16, 12.0, seed=w + c)
+    got = wp.backward_warp_fast(x, flow)
+    torch.cuda.synchronize()
+    want = wp.backward_warp_plain(x, flow)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=ATOL[xdt])
+
+
+@pytest.mark.parametrize("xdt", DTYPES)
+@pytest.mark.parametrize("c", [1, 2, 3, 4])
+@pytest.mark.parametrize("s2d", [0, 2, 4])
+def test_every_tap_at_the_last_pixel(dev, xdt, c, s2d):
+    """A flow that sends every pixel past the bottom-right corner: all four
+    taps read the tensor's last pixel, where a vector load of the
+    neighbour pair would run past x's end; and one that lands a pixel left
+    of it, so that the pair is the last two pixels."""
+    n, h, w = 2, 8, 12
+    x, _ = _inputs(dev, n, h, w, c, xdt, torch.float32, 0.0, seed=c)
+    u = torch.arange(w, device=dev, dtype=torch.float32)[None, None, :]
+    v = torch.arange(h, device=dev, dtype=torch.float32)[None, :, None]
+    for dx, dy in ((1e4 - u, 1e4 - v), (w - 1.5 - u, h - 1.25 - v)):
+        flow = torch.stack([dx.expand(n, h, w), dy.expand(n, h, w)], dim=-1)
+        got = wp.backward_warp_fast(x, flow, s2d_out=s2d)
+        torch.cuda.synchronize()
+        want = wp.backward_warp_plain(x, flow, s2d_out=s2d)
+        torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=ATOL[xdt])
+
+
+@pytest.mark.parametrize("xdt", DTYPES)
+@pytest.mark.parametrize("fdt", DTYPES)
+@pytest.mark.parametrize("c", [1, 2, 4])
+@pytest.mark.parametrize("n,s2d", [(1, 0), (2, 2), (2, 4)])
+def test_channels_layouts_and_batches(dev, xdt, fdt, c, n, s2d):
+    x, flow = _inputs(dev, n, 16, 24, c, xdt, fdt, 20.0, seed=10 * c + n + s2d)
+    got = wp.backward_warp_fast(x, flow, s2d_out=s2d)
+    torch.cuda.synchronize()
+    want = wp.backward_warp_plain(x, flow, s2d_out=s2d)
+    assert got.shape == want.shape and got.dtype == xdt
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=ATOL[xdt])
+
+
+def test_wrapper_refuses_what_the_vector_kernel_cannot_take(dev):
+    """The kernel reads by aligned 16-byte vectors and is built for
+    s2d_out 0, 2 and 4: a misaligned x or flow, and s2d_out = 8, raise."""
+    x, flow = _inputs(dev, 1, 8, 16, 3, torch.bfloat16, torch.bfloat16, 4.0, seed=9)
+    before = wp.launches
+    x_off = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:].view(x.shape)
+    f_off = torch.empty(flow.numel() + 2, dtype=flow.dtype, device=dev)[2:].view(flow.shape)
+    with pytest.raises(ValueError, match="x must be 16-byte aligned"):
+        wp.backward_warp_fast(x_off, flow)
+    with pytest.raises(ValueError, match="flow must be 16-byte aligned"):
+        wp.backward_warp_fast(x, f_off)
+    with pytest.raises(ValueError, match="s2d_out in"):
+        wp.backward_warp_fast(x, flow, s2d_out=8)
+    assert wp.launches == before
 
 
 def test_wrapper_refuses_what_the_kernel_cannot_take(dev):
