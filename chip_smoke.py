@@ -8,15 +8,17 @@ path on the card.
 Phases (any failure exits non-zero, and nothing is caught):
   1. card and settings: name and power limit (nvidia-smi), TF32 off, the
      service's default routes (tsm_pair, conv_stack);
-  2. build every CUDA kernel of the paths from the sources, in parallel;
+  2. build every CUDA kernel of the paths from the sources (three), in
+     parallel;
   3. each kernel against its plain PyTorch version on the card at the
      main paths' shapes, with timings (CUDA events around each call,
      median of 30) beside the bound derived from the H100 SXM data sheet
      and a PyTorch call of the same function as a yardstick (timing and
      bound from tools/bench_tsm_conv.py): K1 and K2 (tsm_conv,
-     tsm_conv_pair) at the warm chunk's shapes (K1 also with its share
-     of the bound and its persistent grid, blocks against tiles; K2
-     beside two K1 launches), K3 (backward_warp, through
+     tsm_conv_pair, two chained K1 launches a call) at the warm chunk's
+     shapes (K1 also with its share of the bound and its persistent
+     grid, blocks against tiles; K2 beside two tsm_conv calls and two
+     cuDNN convs), K3 (backward_warp, through
      tools/bench_backward_warp.py) at EGVSR's, per call and back to back
      (its device time), K4 (fused_conv_stack, through
      tools/bench_conv_stack.py) at SRVGG's body for L = 1, 2, 4 (L
@@ -43,7 +45,9 @@ Phases (any failure exits non-zero, and nothing is caught):
      (float32) at a small size over 8 frames of the recurrence, by PSNR;
   8. the CLI through the pipeline and stream layer, once with --model
      egvsr and once with the default denoise realesrgan, fed 24 frames
-     by tests/fake_ffmpeg.py, with the output file's size checked;
+     by tests/fake_ffmpeg.py, with the output file's size checked; then
+     the paced end-to-end bench (tools/bench_e2e.py) once, default
+     denoise at 24 frames/s for 10 s, its frame accounting checked;
   9. K4's other paths: the SR-only service (denoising off) at 720p ->
      1440p; the image server's settings with 8 single-frame 256x256
      requests coalesced into fewer dispatches, each held against its own
@@ -114,7 +118,9 @@ def nbytes_of(*tensors) -> int:
 
 def check_tsm_conv_pair(tsm, bench, c: int, h: int, w: int, t: int = 4) -> dict:
     """K2 against tsm_conv_pair_plain on the card at one warm-chunk shape:
-    y2 and the carry y1_last2 at rtol = atol = 0.05."""
+    y2 and the carry y1_last2 at rtol = atol = 0.05, with two K1 launches
+    a call; timed beside two tsm_conv calls, its plain version, two cuDNN
+    convs and its bound."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2000 + c)
 
@@ -126,10 +132,11 @@ def check_tsm_conv_pair(tsm, bench, c: int, h: int, w: int, t: int = 4) -> dict:
     w1, b1, w2, b2 = randn(3, 3, c, c, scale=0.05), randn(c, scale=0.1), randn(3, 3, c, c, scale=0.05), randn(c, scale=0.1)
     args = (x, *carries, w1, b1, w2, b2, "relu6")
 
-    before = tsm.pair_launches
+    before, k1_before = tsm.pair_launches, tsm.launches
     got_y2, got_carry = tsm.tsm_conv_pair(*args)
     torch.cuda.synchronize()
-    assert tsm.pair_launches == before + 1, "the wrapper did not launch the kernel"
+    assert (tsm.pair_launches, tsm.launches) == (before + 1, k1_before + 2), (
+        "the wrapper did not make two K1 launches")
     want_y2, want_carry = tsm.tsm_conv_pair_plain(*args)
     max_err = 0.0
     for name, got, want in (("y2", got_y2, want_y2), ("y1_last2", got_carry, want_carry)):
@@ -163,7 +170,7 @@ def check_tsm_conv_pair(tsm, bench, c: int, h: int, w: int, t: int = 4) -> dict:
     }
     row.update(bench.bound(flops, nbytes))
     log(f"tsm_conv_pair C={c} {h}x{w} T={t}: max|err| {max_err:.4g} (rtol=atol={bench.TOL}); "
-        f"kernel {kernel_ms:.4f} ms, two K1 launches {two_k1_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"kernel {kernel_ms:.4f} ms, two tsm_conv calls {two_k1_ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"two cuDNN convs on the built mixes {library_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
         f"({row['bound_by']})")
     return row
@@ -241,11 +248,11 @@ class Counters:
 
 def denoise_launches(cold: int, warm: int, flush: int, tsm_pair: bool, conv_stack: int) -> dict:
     """Kernel launches that a run of the denoise path implies: 16 K1 per
-    cold, flush or (without tsm_pair) warm chunk, 8 K2 per warm chunk with
-    it, and 32 K4 per SRVGG apply (one per chunk), one a body layer, with
-    any conv_stack = L > 0."""
+    chunk, with tsm_pair too (a warm chunk's 8 K2 calls make 2 each), and
+    32 K4 per SRVGG apply (one per chunk), one a body layer, with any
+    conv_stack = L > 0."""
     chunks = cold + warm + flush
-    return {"tsm_conv": 16 * (cold + flush + (0 if tsm_pair else warm)),
+    return {"tsm_conv": 16 * chunks,
             "tsm_conv_pair": 8 * warm if tsm_pair else 0, "backward_warp": 0,
             "fused_conv_stack": chunks * 32 if conv_stack else 0}
 
@@ -544,6 +551,25 @@ def run_cli(counters, card: str, defaults: dict, n: int = 24) -> list[dict]:
     return results
 
 
+def run_bench_e2e(card: str, seconds: float = 10.0) -> list[dict]:
+    """The paced end-to-end bench (tools/bench_e2e.py) once: the default
+    denoise pipeline fed 24 frames/s for `seconds`.  Only its frame
+    accounting is held, not a rate: every source frame is delivered live
+    or counted dropped, and the EOF drain delivers min(N, 16) more."""
+    from sharkshark_tpu_torch.models import bsvd
+    from sharkshark_tpu_torch.tools import bench_e2e
+
+    rows = bench_e2e.run(["--seconds", str(seconds), "--fps", "24"])
+    by = {r["metric"]: r for r in rows}
+    acct = by["drop_pct"]
+    assert acct["frames_in"] == int(seconds * 24), acct
+    assert acct["frames_live"] + acct["frames_dropped"] == acct["frames_in"], f"frames lost: {acct}"
+    assert acct["frames_drained"] == min(acct["frames_live"], bsvd.SHIFT_NUM), acct
+    assert all(r["card"] == card for r in rows), [r["card"] for r in rows]
+    log(json.dumps({"bench_e2e": rows}))
+    return rows
+
+
 # --------------------------------------------------------------- phase 9
 
 
@@ -741,7 +767,7 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    sources = ["tsm_conv", "tsm_conv_pair", "backward_warp", "conv_stack"]
+    sources = ["tsm_conv", "backward_warp", "conv_stack"]
     logs = _build.build(sources, verbose=True)
     log(f"built {', '.join(sources)} in {time.perf_counter() - t0:.2f} s")
     for name in sources:
@@ -784,8 +810,9 @@ def main() -> int:
     # 7. EGVSR step, card against CPU
     egvsr_psnr = check_egvsr_step_against_cpu(wp)
 
-    # 8. the CLI through the pipeline
+    # 8. the CLI through the pipeline, then the paced end-to-end bench
     cli_res = run_cli(counters, card, defaults)
+    e2e_rows = run_bench_e2e(card)
 
     # 9. the SR-only service, coalesced requests, tiled upscale (K4's paths)
     sr_res = run_sr_path(service_mod, counters, card, stack_l)
@@ -801,13 +828,14 @@ def main() -> int:
     kernels = [
         kernel_entry(bench, "tsm_conv", "sharkshark_tpu_torch/csrc/tsm_conv.cu",
                      "sharkshark_tpu/ops/pallas/tsm_conv.py:227", main_res["launches"]["tsm_conv"], rows),
-        kernel_entry(bench, "tsm_conv_pair", "sharkshark_tpu_torch/csrc/tsm_conv_pair.cu",
+        kernel_entry(bench, "tsm_conv_pair", "sharkshark_tpu_torch/csrc/tsm_conv.cu",
                      "sharkshark_tpu/ops/pallas/tsm_conv.py:502", on_res["launches"]["tsm_conv_pair"], pair_rows),
         kernel_entry(bench, "backward_warp", "sharkshark_tpu_torch/csrc/backward_warp.cu",
                      "sharkshark_tpu/ops/pallas/warp_band.py:262", egvsr_res["launches"], [warp_case]),
         kernel_entry(bench, "fused_conv_stack", "sharkshark_tpu_torch/csrc/conv_stack.cu",
                      "experiments/conv_stack.py:252", on_res["launches"]["fused_conv_stack"], [stack_row]),
     ]
+    kernels[1]["note"] = "2 launches of K1 a call"
     kernels[2]["device_ms"] = warp_case["device_ms"]
     kernels[2]["cases"] = warp_rows
     kernels[2]["max_abs_err"] = max(r["max_abs_err"] for r in warp_rows)
@@ -817,7 +845,7 @@ def main() -> int:
     log(json.dumps({"defaults": defaults, "routes_on": routes_on, "route_timing": route_rows,
                     "main_path": main_res, "routes_on_path": on_res, "k1_layer_by_layer_path": ref_res,
                     "step_psnr_db": step_psnr, "egvsr_path": egvsr_res, "egvsr_chunked_path": chunk_res,
-                    "egvsr_step_psnr_db": egvsr_psnr, "cli": cli_res, "sr_path": sr_res,
+                    "egvsr_step_psnr_db": egvsr_psnr, "cli": cli_res, "bench_e2e": e2e_rows, "sr_path": sr_res,
                     "coalesced": coalesce_res, "tile": tile_res, "card": card}))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -11,8 +11,9 @@ over the chunk; each conv carries the previous frame (`center`) and a
 FIFOs carry the frames between push and pop.  Warm-up and end-of-clip
 flushing are a per-conv window mask over the chunk's global frame
 indices.  Every temporal-shift conv goes through ops/tsm_conv.py: the
-CUDA kernels on the card (K1 per conv, or with tsm_pair K2 per mem block
-of a warm chunk), their plain versions on the CPU.
+CUDA kernel K1 on the card (per conv, or with tsm_pair per mem block of a
+warm chunk through K2's wrapper, which chains two K1 launches), the plain
+versions on the CPU.
 
 State is a dict of tensors with the JAX package's layout; its frame
 counter "t" is a Python int, so masks and ring offsets are decided on
@@ -239,8 +240,8 @@ def _shift_conv_chunk(p: dict, st: dict, x: torch.Tensor, act: str):
 
 
 def _pair_chunk(p, st, x, act):
-    """Both shift convs of a mem block in one K2 launch (warm chunks, T >= 2):
-    the same outputs and carries as two _shift_conv_chunk calls."""
+    """Both shift convs of a mem block through K2's wrapper (warm chunks,
+    T >= 2): the same outputs and carries as two _shift_conv_chunk calls."""
     fold = x.shape[-1] // 8
     y2, y1_last2 = tsm.tsm_conv_pair(
         x, st["c1"]["center"], st["c1"]["left"], st["c2"]["center"], st["c2"]["left"],
@@ -389,10 +390,10 @@ def chunk_step(
     resulting state is in ring order: pass it through
     ring_to_fifo_state before a cold or flush step.
 
-    tsm_pair=True runs each mem block of a warm chunk with T >= 2 as one
-    K2 launch (ops/tsm_conv.py::tsm_conv_pair) in place of two K1
-    launches: the same function, y1 kept on chip.  Cold and flush chunks
-    ignore it.
+    tsm_pair=True runs each mem block of a warm chunk with T >= 2 through
+    ops/tsm_conv.py::tsm_conv_pair (K2) in place of two tsm_conv calls:
+    the same function and, on the card, the same two K1 launches.  Cold
+    and flush chunks ignore it.
 
     inplace=True lets a warm step write the T new frames into the
     skip1/skip2 rings of `state` itself instead of into a copy of each

@@ -1,8 +1,8 @@
-"""Temporal-shift 3x3 conv for BSVD's buffered convs: the CUDA kernels
+"""Temporal-shift 3x3 conv for BSVD's buffered convs: the CUDA kernel
 `csrc/tsm_conv.cu` (K1, counterpart of the JAX package's Pallas kernel
-ops/pallas/tsm_conv.py::tsm_conv) and `csrc/tsm_conv_pair.cu` (K2, a mem
-block's two convs in one launch, counterpart of tsm_conv_pair), and their
-plain PyTorch versions.
+ops/pallas/tsm_conv.py::tsm_conv), a mem block's two convs as two chained
+K1 launches (K2, counterpart of tsm_conv_pair), and their plain PyTorch
+versions.
 
 Over a chunk x of frames [a, a+T) with carry prev1 = x_{a-1} and
 left0 = x_{a-2}[..., fold:2fold] (fold = C/8), output j is
@@ -11,8 +11,14 @@ x_j, [fold, 2fold) from frame j-2 and [2fold, C) from frame j-1.
 
 `tsm_conv` and `tsm_conv_pair` run the plain version for a tensor on the
 CPU and the kernel for a tensor on a CUDA device; on CUDA they launch the
-kernel or raise, they never fall back.  `launches` counts K1's launches,
-`pair_launches` K2's.
+kernel or raise, they never fall back.  `launches` counts K1's launches
+(two for each K2 call), `pair_launches` K2's calls.
+
+K2 is not a kernel of its own: fusing the pair cannot pay on an H100.
+Holding y1 over each tile's halo costs 1.27x conv1's MACs, which puts a
+fused kernel's bound above two K1 launches' at C=128 and within 3 % of
+it at C=64, and both convs' taps would not fit in shared memory beside
+each other (at C=128 one conv's already do not).
 """
 
 from __future__ import annotations
@@ -105,10 +111,39 @@ def _weights(w, b, c, dev):
     return w, b
 
 
-def _launch(x, prev1, left0, w, b, act):
-    global launches
-    from . import _build
+_kernel = None
 
+
+def _kernel_fn():
+    """K1's C function, built, loaded and typed once per process."""
+    global _kernel
+    if _kernel is None:
+        from . import _build
+
+        fn = _build.load("tsm_conv").tsm_conv_bf16
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _kernel = fn
+    return _kernel
+
+
+def _run(x, prev1, left0, w, b, act):
+    """One K1 launch on tensors that passed _check, x (T, N, H, W, C)."""
+    global launches
+    t, n, h, wd, c = x.shape
+    dev = x.device
+    out = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _kernel_fn()(x.data_ptr(), prev1.data_ptr(), left0.data_ptr(), w.data_ptr(),
+                           b.data_ptr(), out.data_ptr(), t, n, h, wd, c, _ACT[act], stream)
+    if err:
+        raise RuntimeError(f"tsm_conv: CUDA kernel launch failed with cudaError_t {err}")
+    launches += 1
+    return out
+
+
+def _launch(x, prev1, left0, w, b, act):
     squeeze = x.ndim == 4
     if squeeze:
         x, prev1, left0 = x[:, None], prev1[None], left0[None]
@@ -120,18 +155,7 @@ def _launch(x, prev1, left0, w, b, act):
     _check("left0", left0, (n, h, wd, c // 8), dev)
     _check("w", w, (3, 3, c, c), dev)
     _check("b", b, (c,), dev)
-    out = torch.empty_like(x)
-    lib = _build.load("tsm_conv")
-    fn = lib.tsm_conv_bf16
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(x.data_ptr(), prev1.data_ptr(), left0.data_ptr(), w.data_ptr(),
-                 b.data_ptr(), out.data_ptr(), t, n, h, wd, c, _ACT[act], stream)
-    if err:
-        raise RuntimeError(f"tsm_conv: CUDA kernel launch failed with cudaError_t {err}")
-    launches += 1
+    out = _run(x, prev1, left0, w, b, act)
     return out[:, 0] if squeeze else out
 
 
@@ -194,8 +218,6 @@ def tsm_conv_pair_plain(
 
 def _launch_pair(x, prev1_x, left0_x, prev1_y, left0_y, w1, b1, w2, b2, act):
     global pair_launches
-    from . import _build
-
     squeeze = x.ndim == 4
     if squeeze:
         x, prev1_x, left0_x = x[:, None], prev1_x[None], left0_x[None]
@@ -215,23 +237,15 @@ def _launch_pair(x, prev1_x, left0_x, prev1_y, left0_y, w1, b1, w2, b2, act):
         _check(name, a, (3, 3, c, c), dev)
     for name, a in (("b1", b1), ("b2", b2)):
         _check(name, a, (c,), dev)
-    out = torch.empty_like(x)
-    carry = torch.empty((2, n, h, wd, c), dtype=x.dtype, device=dev)
-    lib = _build.load("tsm_conv_pair")
-    fn = lib.tsm_conv_pair_bf16
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(x.data_ptr(), prev1_x.data_ptr(), left0_x.data_ptr(), prev1_y.data_ptr(),
-                 left0_y.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                 out.data_ptr(), carry.data_ptr(), t, n, h, wd, c, _ACT[act], stream)
-    if err:
-        raise RuntimeError(f"tsm_conv_pair: CUDA kernel launch failed with cudaError_t {err}")
+    # y1 is a fresh contiguous tensor, so it passes _check as x did; its
+    # last two frames are a view that keeps y1 alive as c2's carry, as the
+    # K1 route's carry (a view of y1's last frame) does
+    y1 = _run(x, prev1_x, left0_x, w1, b1, act)
+    y2 = _run(y1, prev1_y, left0_y, w2, b2, act)
     pair_launches += 1
     if squeeze:
-        return out[:, 0], carry[:, 0]
-    return out, carry
+        return y2[:, 0], y1[-2:, 0]
+    return y2, y1[-2:]
 
 
 def tsm_conv_pair(
@@ -246,10 +260,11 @@ def tsm_conv_pair(
     b2: torch.Tensor | None,
     act: str = "relu6",
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """A mem block's two temporal-shift convs in one launch; shapes and
-    result as tsm_conv_pair_plain.  A CPU tensor runs the plain version;
-    a CUDA tensor launches the kernel (bf16, contiguous, 16-byte aligned,
-    T >= 2, C in KERNEL_CHANNELS) or raises."""
+    """A mem block's two temporal-shift convs; shapes and result as
+    tsm_conv_pair_plain.  A CPU tensor runs the plain version; a CUDA
+    tensor (bf16, contiguous, 16-byte aligned, T >= 2, C in
+    KERNEL_CHANNELS) makes two K1 launches on the current stream, y1
+    then y2, or raises before either."""
     if x.device.type == "cpu":
         return tsm_conv_pair_plain(x, prev1_x, left0_x, prev1_y, left0_y, w1, b1, w2, b2, act)
     if x.device.type != "cuda":

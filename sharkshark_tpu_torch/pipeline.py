@@ -125,6 +125,7 @@ class UpscalePipeline:
         self.frame_step = 0
         self.last_reported = self.last_streamed = time.time()
         self.skipped_batches = 0
+        self.skipped_frames = 0  # source frames in the skipped batches
         self._latencies: list[float] = []  # TRUE capture->streamer delivery (s)
         self._intervals: list[float] = []  # gap between streamer deliveries (s)
 
@@ -175,6 +176,7 @@ class UpscalePipeline:
                     self.upscaler.push_job(new_entry)
             except queue.Full:
                 self.skipped_batches += 1
+                self.skipped_frames += len(frames)
                 log.info("recoder output skipped (upscaler queue full)")
 
     def _shed_stale(self) -> None:
@@ -204,10 +206,12 @@ class UpscalePipeline:
                             victim = q.get_nowait()
                             if isinstance(victim, UpscalerQueueEntry):
                                 self.skipped_batches += 1
+                                self.skipped_frames += len(victim.frames)
                         except queue.Empty:
                             pass
                 break
             self.skipped_batches += 1
+            self.skipped_frames += len(dropped.frames)
 
     def upscaler_on_queue(self, entry) -> None:
         if isinstance(entry, EOF):
@@ -233,6 +237,7 @@ class UpscalePipeline:
                 self.streamer.push_job(new_entry)
         except queue.Full:
             self.skipped_batches += 1
+            self.skipped_frames += len(entry.frames)
             log.info("upscaler output skipped (streamer queue full)")
 
     def streamer_on_queue(self, entry) -> None:

@@ -235,11 +235,12 @@ class EsrganUpscalerService(BaseUpscalerService):
 
     device: 'cuda' (default) or 'cpu'; a CUDA device on a host without
     CUDA raises here, at construction.  tsm_pair: BSVD's warm mem blocks
-    through K2 (bsvd.chunk_step); off, since K2 measured slower than two
-    K1 launches.  conv_stack: the SRVGG body through K4, that many layers
-    a call (srvgg.apply; 0 = layer by layer); None takes
-    srvgg.DEFAULT_CONV_STACK where K4 can run the config and 0 where it
-    cannot; a number K4 cannot take for the config raises here.
+    through K2's wrapper (bsvd.chunk_step), which makes the same two K1
+    launches as the default route; off by default.  conv_stack: the SRVGG
+    body through K4, that many layers a call (srvgg.apply; 0 = layer by
+    layer); None takes srvgg.DEFAULT_CONV_STACK where K4 can run the
+    config and 0 where it cannot; a number K4 cannot take for the config
+    raises here.
     coalesce_max: merge queued same-shape requests into one dispatch
     (forced to 1 when denoising: the BSVD stream is temporal, its chunk
     is not a batch)."""
@@ -352,18 +353,25 @@ class EsrganUpscalerService(BaseUpscalerService):
                 den = bsvd.init_params(torch.Generator().manual_seed(1), self.bsvd_cfg, self.device)
             den = torch_import.to_tensors(den, self.device, self.compute_dtype)
             self._params = {"sr": sr_params, "denoise": den}
-            self._den_state = init_denoise_state(1, spec, self.bsvd_cfg, device=self.device)
             # past micro-batch 4 the SR tail runs in sub-batches of 4
             self._sr_sub = 4 if self.batch_size > 4 else None
-            # last SHIFT_NUM raw frames: the flush references them for the
-            # blend / color match of the drained outputs
-            self._tail_frames: list = []
-            self._tail_real: list = []
-            self._frames_seen = 0
-            self._last_step = 0
+            self.reset_stream()
         log.info("model loaded (%s, denoise=%s, tsm_pair=%s, conv_stack=%d, device=%s)",
                  self.upscaler_model, self.denoising, self.tsm_pair, self.conv_stack, self.device)
         self._initialized = True
+
+    def reset_stream(self) -> None:
+        """Start a fresh stream: BSVD's state and the frame bookkeeping of
+        the denoise path as proc_init leaves them, so that a caller who
+        warmed the service up (proc_init, then upscale) before start()
+        feeds the stream cold, as a live stream begins."""
+        self._den_state = init_denoise_state(1, self.spec, self.bsvd_cfg, device=self.device)
+        # last SHIFT_NUM raw frames: the flush references them for the
+        # blend / color match of the drained outputs
+        self._tail_frames: list = []
+        self._tail_real: list = []
+        self._frames_seen = 0
+        self._last_step = 0
 
     @torch.inference_mode()
     def proc_eof(self):
