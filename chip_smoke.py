@@ -52,6 +52,18 @@ Phases (any failure exits non-zero, and nothing is caught):
      1440p; the image server's settings with 8 single-frame 256x256
      requests coalesced into fewer dispatches, each held against its own
      uncoalesced run; tile_upscale over a 720p image in 15 tiles;
+ 10. the model zoo and the other entry points at full width, 720p ->
+     1440p, micro-batch 4, bf16, with seeded state dicts written to a
+     temporary directory and passed by path: FSRCNN, RRDBNet
+     RealESRGAN_x4plus (23 blocks, 64 features, growth 32; its apply
+     alone beside its bound, with peak memory; the service with denoise
+     off and on, the drain's frame count checked) and
+     realesr-animevideov3 (16 K4 launches a call) through the service;
+     animevideov3 with the default denoise and FSRCNN through the CLI,
+     the output's bytes and the launches checked; each model on the card
+     against the CPU by PSNR, with the reference's spread; upscale_image
+     whole and in 256-pixel tiles; pipeline_folder (a child CLI on the
+     card, then a skip);
 then one JSON line of kernel numbers, the card's name and power limit,
 and the result line last.  Exits 2 without a result when CUDA is
 unavailable or the script stands outside the repo checkout.
@@ -59,7 +71,9 @@ unavailable or the script stands outside the repo checkout.
 
 from __future__ import annotations
 
+import contextlib
 import inspect
+import io
 import json
 import os
 import statistics
@@ -246,15 +260,16 @@ class Counters:
                 "backward_warp": self.wp.launches, "fused_conv_stack": self.cs.launches}
 
 
-def denoise_launches(cold: int, warm: int, flush: int, tsm_pair: bool, conv_stack: int) -> dict:
+def denoise_launches(cold: int, warm: int, flush: int, tsm_pair: bool, conv_stack: int,
+                     body_layers: int = 32) -> dict:
     """Kernel launches that a run of the denoise path implies: 16 K1 per
     chunk, with tsm_pair too (a warm chunk's 8 K2 calls make 2 each), and
-    32 K4 per SRVGG apply (one per chunk), one a body layer, with any
-    conv_stack = L > 0."""
+    one K4 a body layer per SRVGG apply (one per chunk; 32 for
+    general-x4v3, 16 for animevideov3) with any conv_stack = L > 0."""
     chunks = cold + warm + flush
     return {"tsm_conv": 16 * chunks,
             "tsm_conv_pair": 8 * warm if tsm_pair else 0, "backward_warp": 0,
-            "fused_conv_stack": chunks * 32 if conv_stack else 0}
+            "fused_conv_stack": chunks * body_layers if conv_stack else 0}
 
 
 def run_main_path(service_mod, counters, card: str, tsm_pair: bool, conv_stack: int,
@@ -504,35 +519,36 @@ def check_egvsr_step_against_cpu(wp) -> float:
 # --------------------------------------------------------------- phase 8
 
 
-def run_cli(counters, card: str, defaults: dict, n: int = 24) -> list[dict]:
-    """The port's CLI, through the pipeline and the stream layer, with
-    tests/fake_ffmpeg.py standing in for ffmpeg: 24 frames of 720p60 in
-    (the lr_shape, so no host resize), a raw 1440x2560 rgb24 file out."""
-    from sharkshark_tpu_torch.main import upscaler
-
-    frame_bytes = 1440 * 2560 * 3
-    results = []
+@contextlib.contextmanager
+def fake_ffmpeg(n: int):
+    """A temporary directory (inside the build directory) whose `ffmpeg`
+    runs tests/fake_ffmpeg.py, set as the stream layer's binary, feeding
+    n frames of the source quality."""
     build = ROOT / "sharkshark_tpu_torch" / "build"
     build.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as tmp:
         fake = Path(tmp) / "ffmpeg"
         fake.write_text(f'#!/bin/sh\nexec "{sys.executable}" "{ROOT / "tests" / "fake_ffmpeg.py"}" "$@"\n')
         fake.chmod(0o755)
-        src = Path(tmp) / "source.mp4"
-        src.write_bytes(b"")
         os.environ["SHARKSHARK_FFMPEG"] = str(fake)
         os.environ["FAKE_FFMPEG_FRAMES"] = str(n)
-        egvsr_launches = {"tsm_conv": 0, "tsm_conv_pair": 0, "backward_warp": n, "fused_conv_stack": 0}
-        runs = [
-            ("egvsr", ["--model", "egvsr", "--weights", str(MINTED / "egvsr-derived-x4.pth")],
-             n, egvsr_launches),
-            # micro-batches of 4: 4 cold chunks, then warm ones, then 4 flush chunks
-            ("realesrgan+denoise", ["--weights", str(MINTED / "srvgg-derived-x4.pth"),
-                                    "--denoise-weights", str(MINTED / "bsvd-derived-32.pth")],
-             n + min(n, 16), denoise_launches(4, n // 4 - 4, 4, **defaults)),
-        ]
+        yield Path(tmp)
+
+
+def run_cli(counters, card: str, runs: list, n: int = 24) -> list[dict]:
+    """The port's CLI, through the pipeline and the stream layer, with
+    tests/fake_ffmpeg.py standing in for ffmpeg: 24 frames of 720p60 in
+    (the lr_shape, so no host resize), a raw 1440x2560 rgb24 file out.
+    runs: (name, extra flags, frames out, kernel launches) each."""
+    from sharkshark_tpu_torch.main import upscaler
+
+    frame_bytes = 1440 * 2560 * 3
+    results = []
+    with fake_ffmpeg(n) as tmp:
+        src = tmp / "source.mp4"
+        src.write_bytes(b"")
         for name, extra, frames_out, want_launches in runs:
-            out = Path(tmp) / f"{name}.raw"
+            out = tmp / f"{name}.raw"
             counters.reset()
             t0 = time.perf_counter()
             upscaler.main(["--url", str(src), "--quality", "720p60", "--fps", "24",
@@ -549,6 +565,17 @@ def run_cli(counters, card: str, defaults: dict, n: int = 24) -> list[dict]:
                 f"{launches} kernel launches, wall {wall:.3f} s on {card}")
             out.unlink()
     return results
+
+
+def main_cli_runs(defaults: dict, n: int = 24) -> list:
+    egvsr_launches = {"tsm_conv": 0, "tsm_conv_pair": 0, "backward_warp": n, "fused_conv_stack": 0}
+    return [
+        ("egvsr", ["--model", "egvsr", "--weights", str(MINTED / "egvsr-derived-x4.pth")], n, egvsr_launches),
+        # micro-batches of 4: 4 cold chunks, then warm ones, then 4 flush chunks
+        ("realesrgan+denoise", ["--weights", str(MINTED / "srvgg-derived-x4.pth"),
+                                "--denoise-weights", str(MINTED / "bsvd-derived-32.pth")],
+         n + min(n, 16), denoise_launches(4, n // 4 - 4, 4, **defaults)),
+    ]
 
 
 def run_bench_e2e(card: str, seconds: float = 10.0) -> list[dict]:
@@ -605,14 +632,22 @@ def drive(svc, entry_cls, jobs: list, queued: bool = False) -> tuple[list, list,
     return got[:-1], stamps[:-1], dispatched
 
 
-def run_sr_path(service_mod, counters, card: str, conv_stack: int, jobs: int = 8, batch: int = 4) -> dict:
+def run_sr_path(service_mod, counters, card: str, conv_stack: int | None, jobs: int = 8, batch: int = 4,
+                model: str = "realesrgan", weights: str = str(MINTED / "srvgg-derived-x4.pth"),
+                body_layers: int = 32) -> dict:
     """The SR-only service (--no-denoise: steps.upscale_multi with the
-    local color match) at 720p -> 1440p, SRVGG's body through K4."""
+    local color match) at 720p -> 1440p with `model`, an SRVGG body
+    (body_layers deep) through K4 where conv_stack resolves to L > 0.
+    One micro-batch runs first as a warm-up; the device's peak memory is
+    read over the timed run."""
     svc = service_mod.EsrganUpscalerService(
         lr_level=3, output_shape=(1440, 2560), denoising=False, batch_size=batch,
-        weights=str(MINTED / "srvgg-derived-x4.pth"), conv_stack=conv_stack)
+        upscaler_model=model, weights=weights, conv_stack=conv_stack)
     svc.proc_init()
     frames = make_frames(jobs * batch, 720, 1280, seed=23)
+    svc.upscale(frames[:batch])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     counters.reset()
     t0 = time.perf_counter()
     got, stamps, _ = drive(svc, service_mod.UpscalerQueueEntry,
@@ -625,14 +660,20 @@ def run_sr_path(service_mod, counters, card: str, conv_stack: int, jobs: int = 8
         assert o.dtype == np.uint8 and o.shape[1:] == (1440, 2560, 3), (o.dtype, o.shape)
         assert min(f.std() for f in o) > 5, "an output frame is flat"
     want = {"tsm_conv": 0, "tsm_conv_pair": 0, "backward_warp": 0,
-            "fused_conv_stack": jobs * 32 if conv_stack else 0}
-    assert launches == want, f"SR-only path: launches {launches}, expected {want}"
+            "fused_conv_stack": jobs * body_layers if svc.conv_stack else 0}
+    assert launches == want, f"SR-only path ({model}): launches {launches}, expected {want}"
+    # from the second delivery on, their spacing is the step's time; a step
+    # of many more launches than the CUDA launch queue holds (RRDBNet's
+    # ~1,100) blocks the host while it enqueues the next micro-batch and
+    # so delays the first delivery: read the wall time per frame there
     per_frame_s = (stamps[-1] - stamps[0]) / ((jobs - 1) * batch)
-    res = {"frames": jobs * batch, "conv_stack": conv_stack, "launches": launches, "wall_s": wall,
-           "ms_per_frame": per_frame_s * 1e3, "fps": 1.0 / per_frame_s}
-    log(f"SR-only path (conv_stack={conv_stack}): {jobs * batch} frames of 1440x2560x3 uint8, "
-        f"launches {launches}, wall {wall:.3f} s; {res['ms_per_frame']:.3f} ms/frame, "
-        f"{res['fps']:.3f} frames/s (batch {batch}) on {card}")
+    res = {"model": model, "frames": jobs * batch, "conv_stack": svc.conv_stack, "launches": launches,
+           "wall_s": wall, "ms_per_frame": per_frame_s * 1e3, "fps": 1.0 / per_frame_s,
+           "wall_ms_per_frame": wall / (jobs * batch) * 1e3, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"SR-only path ({model}, conv_stack={svc.conv_stack}): {jobs * batch} frames of 1440x2560x3 uint8, "
+        f"launches {launches}, wall {wall:.3f} s ({res['wall_ms_per_frame']:.3f} ms a frame); "
+        f"{res['ms_per_frame']:.3f} ms/frame between deliveries, {res['fps']:.3f} frames/s (batch {batch}), "
+        f"peak device memory {res['peak_mem_gb']:.2f} GB on {card}")
     return res
 
 
@@ -712,6 +753,234 @@ def run_tile_upscale(counters, card: str, conv_stack: int) -> dict:
     log(f"tile_upscale (1,720,1280,3) -> (1,2880,5120,3), 15 tiles of 276x276: conv_stack={conv_stack} "
         f"{times[conv_stack]:.3f} ms ({launches[conv_stack]} K4 launches), layer by layer {times[0]:.3f} ms, "
         f"PSNR between them {value:.3f} dB (min 40) on {card}")
+    return res
+
+
+# -------------------------------------------------------------- phase 10
+
+
+def write_zoo_weights(tmp: Path) -> dict:
+    """Seeded state dicts in the reference key layout, written as .pth:
+    FSRCNN (its deconv drawn 60x wider than the reference's init of std
+    0.001, which leaves the output a near-constant, and a 0.5 bias),
+    RRDBNet RealESRGAN_x4plus at its published config (conv_last scaled
+    by 0.004 with a 0.5 bias: the random trunk's features grow to a
+    spread of ~50, and so the output spreads ~0.2 around 0.5 instead of
+    saturating) and realesr-animevideov3."""
+    from sharkshark_tpu_torch.models import fsrcnn, rrdbnet, srvgg
+
+    fp = fsrcnn.init_params(torch.Generator().manual_seed(40))
+    fp["deconv"] = {"w": fp["deconv"]["w"] * 60, "b": torch.full((1,), 0.5)}
+    rp = rrdbnet.init_params(torch.Generator().manual_seed(41), rrdbnet.X4PLUS)
+    rp["conv_last"] = {"w": rp["conv_last"]["w"] * 0.004, "b": torch.full((3,), 0.5)}
+    sds = {
+        "fsrcnn": fsrcnn.to_torch(fp),
+        "RealESRGAN_x4plus": rrdbnet.to_torch(rp),
+        "realesr-animevideov3": srvgg.to_torch(
+            srvgg.init_params(torch.Generator().manual_seed(42), srvgg.ANIMEVIDEO_V3)),
+    }
+    paths = {}
+    for name, sd in sds.items():
+        paths[name] = str(tmp / f"{name}.pth")
+        torch.save({"params_ema": sd}, paths[name])
+    return paths
+
+
+def time_rrdb_apply(bench, card: str, path: str, batch: int = 4) -> dict:
+    """RRDBNet x4plus's apply alone on a (4, 720, 1280, 3) bf16 batch,
+    CUDA events around 3 calls after a warm-up, beside its bound by
+    operations, with the device's peak memory over the calls."""
+    from sharkshark_tpu_torch.models import rrdbnet, torch_import
+    from sharkshark_tpu_torch.tools.profile_rrdb import flops_per_frame
+
+    dev = torch.device("cuda")
+    params = torch_import.to_tensors(rrdbnet.from_torch(torch_import.load_state_dict(path)), dev, torch.bfloat16)
+    x = torch.from_numpy(make_frames(batch, 720, 1280, seed=43)).to(dev).to(torch.bfloat16) / 255
+    with torch.inference_mode():
+        out = rrdbnet.apply(params, x)
+        assert tuple(out.shape) == (batch, 2880, 5120, 3) and torch.isfinite(out.float()).all()
+        del out
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # the weights, the input and earlier phases' tensors
+        ms = bench.time_ms(lambda: rrdbnet.apply(params, x), reps=3, warmup=0) / batch
+    flops = flops_per_frame(rrdbnet.X4PLUS, 720, 1280)
+    bound_ms = flops / bench.PEAK_BF16_FLOPS * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    res = {"ms_per_frame": ms, "tflop_per_frame": flops / 1e12, "bound_ms": bound_ms,
+           "bound_share": bound_ms / ms, "peak_mem_gb": peak / 1e9, "apply_mem_gb": (peak - held) / 1e9}
+    log(f"RRDBNet x4plus apply (23 blocks, nf 64, gc 32), (4,720,1280,3) -> (4,2880,5120,3) bf16: "
+        f"{ms:.3f} ms/frame, {flops / 1e12:.2f} TFLOP a frame, bound {bound_ms:.3f} ms (operations), "
+        f"{100 * res['bound_share']:.1f}% of the bound; peak device memory {res['peak_mem_gb']:.2f} GB, "
+        f"{res['apply_mem_gb']:.2f} GB of it the apply's own on {card}")
+    return res
+
+
+def run_rrdb_denoise(service_mod, counters, card: str, path: str, jobs: int = 2, batch: int = 4) -> dict:
+    """RRDBNet x4plus behind the BSVD denoiser (the CLI's default), 720p ->
+    1440p: `jobs` micro-batches, then the EOF drain; N + min(N, 16)
+    frames out, 16 K1 launches a chunk and no K4."""
+    from sharkshark_tpu_torch.models import bsvd
+
+    svc = service_mod.EsrganUpscalerService(
+        upscaler_model="RealESRGAN_x4plus", lr_level=3, output_shape=(1440, 2560), denoising=True,
+        denoise_rate=0.75, batch_size=batch, weights=path,
+        denoise_weights=str(MINTED / "bsvd-derived-32.pth"))
+    svc.proc_init()
+    frames = make_frames(jobs * batch, 720, 1280, seed=44)
+    counters.reset()
+    t0 = time.perf_counter()
+    got, _, _ = drive(svc, service_mod.UpscalerQueueEntry, [frames[i * batch : (i + 1) * batch] for i in range(jobs)])
+    wall = time.perf_counter() - t0
+    launches = counters.read()
+    n = jobs * batch
+    total = sum(len(e.frames) for e in got)
+    assert total == n + min(n, bsvd.SHIFT_NUM), f"emitted {total} frames, expected {n + min(n, bsvd.SHIFT_NUM)}"
+    for e in got:
+        assert e.frames.dtype == np.uint8 and e.frames.shape[1:] == (1440, 2560, 3), e.frames.shape
+    chunks = jobs + bsvd.SHIFT_NUM // batch
+    want = denoise_launches(jobs, 0, bsvd.SHIFT_NUM // batch, False, 0)
+    assert launches == want, f"RRDBNet denoise path: launches {launches}, expected {want}"
+    res = {"frames": total, "chunks": chunks, "launches": launches, "wall_s": wall,
+           "ms_per_frame_out": wall / total * 1e3}
+    log(f"RRDBNet x4plus + BSVD denoise: {n} frames in, {total} out ({n} live + {total - n} drained), "
+        f"{chunks} chunks, launches {launches}, wall {wall:.3f} s ({res['ms_per_frame_out']:.3f} ms a frame out, "
+        f"cold chunks and drain included) on {card}")
+    return res
+
+
+def check_zoo_against_cpu(counters, paths: dict, lr_shape=(32, 48)) -> list[dict]:
+    """Each new model's apply on the card (bf16) against the port on the
+    CPU (float32) at a small size, by PSNR over the outputs clamped to
+    [0, 1], with the CPU output's standard deviation: FSRCNN (RGB riding
+    the batch), RRDBNet x4plus with all 23 blocks and animevideov3 (its
+    body through K4, 16 launches a call)."""
+    from sharkshark_tpu_torch.models import fsrcnn, rrdbnet, srvgg, torch_import
+
+    img = make_frames(2, *lr_shape, seed=45).astype(np.float32) / 255
+    models = [
+        ("fsrcnn", fsrcnn.from_torch, lambda p, x: fsrcnn.apply_rgb(p, x), 0),
+        ("RealESRGAN_x4plus", rrdbnet.from_torch, lambda p, x: rrdbnet.apply(p, x), 0),
+        ("realesr-animevideov3", lambda sd: srvgg.from_torch(sd, srvgg.ANIMEVIDEO_V3),
+         lambda p, x: srvgg.apply(p, x, cfg=srvgg.ANIMEVIDEO_V3,
+                                  conv_stack=srvgg.resolve_conv_stack(srvgg.ANIMEVIDEO_V3, None)), 16),
+    ]
+    rows = []
+    for name, load, fn, k4 in models:
+        sd = torch_import.load_state_dict(paths[name])
+        outs = {}
+        for dev, dtype in ((torch.device("cuda"), torch.bfloat16), (torch.device("cpu"), torch.float32)):
+            params = torch_import.to_tensors(load(sd), dev, dtype)
+            counters.reset()
+            with torch.inference_mode():
+                out = fn(params, torch.from_numpy(img).to(dev, dtype))
+            outs[dev.type] = out.float().clamp(0, 1).cpu().numpy()
+            if dev.type == "cuda":
+                assert counters.read()["fused_conv_stack"] == k4, f"{name}: {counters.read()}, {k4} K4 expected"
+        ref_std = float(outs["cpu"].std())
+        value = psnr(outs["cuda"] * 255, outs["cpu"] * 255)
+        rows.append({"model": name, "lr_shape": list(lr_shape), "psnr_db": value, "ref_std": ref_std,
+                     "k4_launches": k4})
+        log(f"{name}, card bf16 vs CPU float32 at {lr_shape} x2 frames: PSNR {value:.3f} dB (min {PSNR_MIN}), "
+            f"CPU output std {ref_std:.4f} (min 0.05), {k4} K4 launches")
+        assert ref_std >= 0.05, f"{name}: the reference output is near-constant (std {ref_std:.4f})"
+        assert value >= PSNR_MIN, f"{name}: PSNR {value:.3f} dB below {PSNR_MIN}"
+    return rows
+
+
+def run_upscale_image(card: str, path: str) -> dict:
+    """upscale_image's compute function (FSRCNN, the CLI's default model)
+    on a 720x1280 image, whole and in 256-pixel tiles with 10 pixels of
+    context, the tiled result held against the whole one by PSNR."""
+    from sharkshark_tpu_torch.main import upscale_image
+
+    img = make_frames(1, 720, 1280, seed=46)[0].astype(np.float32) / 255
+    outs, times = {}, {}
+    for tile in (0, 256):
+        upscale_image.upscale_array(img[:64, :64], weights=path, tile=tile)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[tile] = upscale_image.upscale_array(img, weights=path, tile=tile, tile_pad=10)
+        times[tile] = (time.perf_counter() - t0) * 1e3
+        assert outs[tile].shape == (2880, 5120, 3) and np.isfinite(outs[tile]).all()
+    value = psnr(outs[256] * 255, outs[0] * 255)
+    res = {"shape": [720, 1280, 3], "ms_whole": times[0], "ms_tiled": times[256], "psnr_db": value,
+           "std": float(outs[0].std())}
+    log(f"upscale_image.upscale_array FSRCNN 720x1280 -> 2880x5120 bf16: whole {times[0]:.3f} ms, 15 tiles "
+        f"of 256 {times[256]:.3f} ms (host clock, weight loading included), PSNR tiled vs whole {value:.3f} dB "
+        f"(min 40), output std {res['std']:.4f} on {card}")
+    assert value >= 40.0, f"tiled upscale_image is {value:.3f} dB from the whole image"
+    return res
+
+
+def run_pipeline_folder(card: str, path: str, n: int = 8) -> dict:
+    """pipeline_folder over a directory with one fake video: the child CLI
+    (FSRCNN, no denoise, on the card) writes '[SS4] clip.flv'; a second
+    run skips it."""
+    from sharkshark_tpu_torch.main import pipeline_folder
+
+    with fake_ffmpeg(n) as tmp:
+        videos = tmp / "videos"
+        videos.mkdir()
+        (videos / "clip.mp4").write_bytes(b"")
+        argv = ["--dir", str(videos), "--model", "fsrcnn", "--no-denoise", "--weights", path,
+                "--quality", "720p60", "--no-overlay"]
+        t0 = time.perf_counter()
+        pipeline_folder.main(argv)
+        wall = time.perf_counter() - t0
+        out = videos / "[SS4] clip.flv"
+        size = out.stat().st_size
+        assert size == n * 1440 * 2560 * 3, f"pipeline_folder wrote {size} bytes"
+        mtime = out.stat().st_mtime_ns
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            pipeline_folder.main(argv)
+        assert "skip (exists)" in buf.getvalue() and out.stat().st_mtime_ns == mtime, buf.getvalue()
+    log(f"pipeline_folder: one video, {n} frames -> '[SS4] clip.flv' ({size} bytes) in {wall:.3f} s "
+        f"(a child process on the card); the second run skipped it, on {card}")
+    return {"frames": n, "bytes": size, "wall_s": wall}
+
+
+def run_zoo_phase(service_mod, counters, bench, card: str) -> dict:
+    """Phase 10: FSRCNN, RRDBNet x4plus and realesr-animevideov3 at 720p ->
+    1440p, micro-batch 4, bf16, with seeded weights passed by path."""
+    from sharkshark_tpu_torch.models import bsvd
+
+    res = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "sharkshark_tpu_torch" / "build") as tmp:
+        paths = write_zoo_weights(Path(tmp))
+        # (a) FSRCNN through the SR-only service
+        res["fsrcnn"] = run_sr_path(service_mod, counters, card, None, model="fsrcnn", weights=paths["fsrcnn"])
+        # (b) RRDBNet x4plus: the apply alone, then the service without and
+        # with the denoiser
+        res["rrdb_apply"] = time_rrdb_apply(bench, card, paths["RealESRGAN_x4plus"])
+        res["rrdb_sr"] = run_sr_path(service_mod, counters, card, None, jobs=2, model="RealESRGAN_x4plus",
+                                     weights=paths["RealESRGAN_x4plus"])
+        res["rrdb_sr"]["bound_share"] = res["rrdb_apply"]["bound_ms"] / res["rrdb_sr"]["wall_ms_per_frame"]
+        log(f"RRDBNet x4plus SR-only service: {res['rrdb_sr']['wall_ms_per_frame']:.3f} ms a frame (wall), "
+            f"{100 * res['rrdb_sr']['bound_share']:.1f}% of the model's bound")
+        # animevideov3 through the SR-only service: 16 K4 launches a call
+        res["animevideov3"] = run_sr_path(service_mod, counters, card, None, model="realesr-animevideov3",
+                                          weights=paths["realesr-animevideov3"], body_layers=16)
+        res["rrdb_denoise"] = run_rrdb_denoise(service_mod, counters, card, paths["RealESRGAN_x4plus"])
+        # (c) the CLI: animevideov3 with the default denoise (6 live chunks
+        # + 4 flush chunks, 16 K4 a chunk), FSRCNN without
+        n, chunks = 24, 24 // 4 + bsvd.SHIFT_NUM // 4
+        res["cli"] = run_cli(counters, card, [
+            ("realesr-animevideov3+denoise",
+             ["--model", "realesr-animevideov3", "--weights", paths["realesr-animevideov3"],
+              "--denoise-weights", str(MINTED / "bsvd-derived-32.pth")],
+             n + min(n, 16), denoise_launches(4, n // 4 - 4, 4, False, 1, body_layers=16)),
+            ("fsrcnn", ["--model", "fsrcnn", "--no-denoise", "--weights", paths["fsrcnn"]], n,
+             {"tsm_conv": 0, "tsm_conv_pair": 0, "backward_warp": 0, "fused_conv_stack": 0}),
+        ], n=n)
+        av3 = res["cli"][0]["launches"]
+        log(f"realesr-animevideov3 through the CLI: {av3['fused_conv_stack'] / chunks:.0f} K4 launches an SR call "
+            f"over {chunks} chunks, {av3['tsm_conv']} K1 launches")
+        # (d) card against CPU; (e) upscale_image; (f) pipeline_folder
+        res["card_vs_cpu"] = check_zoo_against_cpu(counters, paths)
+        res["upscale_image"] = run_upscale_image(card, paths["fsrcnn"])
+        res["pipeline_folder"] = run_pipeline_folder(card, paths["fsrcnn"])
     return res
 
 
@@ -811,7 +1080,7 @@ def main() -> int:
     egvsr_psnr = check_egvsr_step_against_cpu(wp)
 
     # 8. the CLI through the pipeline, then the paced end-to-end bench
-    cli_res = run_cli(counters, card, defaults)
+    cli_res = run_cli(counters, card, main_cli_runs(defaults))
     e2e_rows = run_bench_e2e(card)
 
     # 9. the SR-only service, coalesced requests, tiled upscale (K4's paths)
@@ -819,6 +1088,12 @@ def main() -> int:
     sr_res["layer_by_layer"] = run_sr_path(service_mod, counters, card, 0)
     coalesce_res = run_coalesced_requests(service_mod, counters, card, stack_l)
     tile_res = run_tile_upscale(counters, card, cs.L_MAX)
+
+    # 10. the model zoo and the other entry points
+    t0 = time.perf_counter()
+    zoo_res = run_zoo_phase(service_mod, counters, bench, card)
+    zoo_res["wall_s"] = time.perf_counter() - t0
+    log(f"phase 10 took {zoo_res['wall_s']:.1f} s")
 
     # the kernels line: launches from the main path's run, or, for a route
     # that is off by default, from the run with the routes on
@@ -840,13 +1115,16 @@ def main() -> int:
     kernels[2]["cases"] = warp_rows
     kernels[2]["max_abs_err"] = max(r["max_abs_err"] for r in warp_rows)
     kernels[3]["cases"] = stack_rows
+    zoo_cli = zoo_res["cli"][0]["launches"]  # animevideov3 with the default denoise
+    kernels[0]["launches_zoo_cli"] = zoo_cli["tsm_conv"]
+    kernels[3]["launches_zoo_cli"] = zoo_cli["fused_conv_stack"]
     for k in kernels:
         assert k["launches"] > 0, f"{k['name']} was not launched on its path"
     log(json.dumps({"defaults": defaults, "routes_on": routes_on, "route_timing": route_rows,
                     "main_path": main_res, "routes_on_path": on_res, "k1_layer_by_layer_path": ref_res,
                     "step_psnr_db": step_psnr, "egvsr_path": egvsr_res, "egvsr_chunked_path": chunk_res,
                     "egvsr_step_psnr_db": egvsr_psnr, "cli": cli_res, "bench_e2e": e2e_rows, "sr_path": sr_res,
-                    "coalesced": coalesce_res, "tile": tile_res, "card": card}))
+                    "coalesced": coalesce_res, "tile": tile_res, "zoo": zoo_res, "card": card}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

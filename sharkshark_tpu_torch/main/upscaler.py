@@ -8,15 +8,13 @@ The JAX package's flags (reference src/main/upscaler.py:5-42: --quality
 --pix-fmt, --reconnects, --mesh), and two of its own: --device (default
 cuda; cpu runs the plain PyTorch path) and --no-overlay (no text
 overlays, so the stream layer never needs cv2).  --model takes
-'realesrgan' (SRVGG with the BSVD denoiser) and 'egvsr'; the other
-models and --mesh are not ported yet (ROADMAP.md).
+'realesrgan' (SRVGG with the BSVD denoiser), 'fsrcnn', 'egvsr' or any
+model zoo name (models/zoo.py); --mesh is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import argparse
-
-MODELS = ("realesrgan", "egvsr")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -40,7 +38,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-frame-skips", action="store_true",
                    help="block instead of dropping frames (offline mode)")
     p.add_argument("--model", default="realesrgan",
-                   help="'realesrgan' (production SRVGG) or 'egvsr'")
+                   help="'realesrgan' (production SRVGG), 'fsrcnn', "
+                        "'egvsr', or any model-zoo entry name "
+                        "(e.g. RealESRGAN_x4plus, realesr-animevideov3)")
     p.add_argument("--weights", default=None, help="SR model .pth path")
     p.add_argument("--weights-wdn", default=None,
                    help="denoise-variant .pth for DNI blending")
@@ -65,9 +65,11 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.model not in MODELS:
-        parser.error(f"--model {args.model!r} is not ported to the PyTorch port yet; it runs "
-                     f"{', '.join(MODELS)} (ROADMAP.md lists the other models)")
+    from ..models.zoo import ZOO
+
+    known = {"realesrgan", "fsrcnn", "egvsr"} | set(ZOO)
+    if args.model not in known:
+        parser.error(f"--model {args.model!r} unknown; choose from {sorted(known)}")
     if args.mesh:
         parser.error("--mesh is not ported to the PyTorch port yet (ROADMAP.md: multi-device)")
 

@@ -1,3 +1,3 @@
-from . import bsvd, egvsr, srvgg, torch_import
+from . import bsvd, egvsr, fsrcnn, rrdbnet, srvgg, torch_import, zoo
 
-__all__ = ["bsvd", "egvsr", "srvgg", "torch_import"]
+__all__ = ["bsvd", "egvsr", "fsrcnn", "rrdbnet", "srvgg", "torch_import", "zoo"]

@@ -4,7 +4,8 @@ of the JAX package's models/srvgg.py).
 A stack of 3x3 convs with PReLU, a (scale^2 * out_ch)-channel tail conv,
 PixelShuffle, plus a nearest-upsampled residual of the input (reference
 src/upscale/model/realesrgan/factory.py:18-82).  `realesr-general-x4v3`
-(num_conv=32, num_feat=64) is the live pipeline's model.  Parameters are
+(num_conv=32, num_feat=64) is the live pipeline's model;
+`realesr-animevideov3` (num_conv=16) runs through the model zoo.  Parameters are
 a plain dict of tensors: {"convs": [{"w": HWIO, "b"}], "acts":
 [{"alpha"}], "tail": {"w", "b"}}, the JAX package's pytree layout.
 
@@ -25,11 +26,11 @@ import torch
 from ..ops import conv2d, pixel_shuffle, prelu, resize
 from ..ops import conv_stack as cs
 from ..ops import fused_epilogue as fe
-from .torch_import import conv_from_torch, prelu_from_torch, to_tensors
+from .torch_import import conv_from_torch, conv_to_torch, cpu_state_dict, prelu_from_torch, to_tensors
 
 __all__ = [
-    "SRVGGConfig", "GENERAL_X4V3", "init_params", "apply",
-    "apply_down_rational", "from_torch", "from_jax", "check_conv_stack",
+    "SRVGGConfig", "GENERAL_X4V3", "ANIMEVIDEO_V3", "init_params", "apply",
+    "apply_down_rational", "from_torch", "from_jax", "to_torch", "check_conv_stack",
     "resolve_conv_stack", "DEFAULT_CONV_STACK",
 ]
 
@@ -44,6 +45,7 @@ class SRVGGConfig(NamedTuple):
 
 
 GENERAL_X4V3 = SRVGGConfig(num_conv=32)
+ANIMEVIDEO_V3 = SRVGGConfig(num_conv=16)
 
 # K4's layers a call on the body where the config allows it: of L = 1, 2,
 # 4, L = 1 measured the fastest warm denoise step on an H100, and no
@@ -163,6 +165,18 @@ def from_torch(
     ]
     tail = conv_from_torch(sd, f"body.{2 * n_layers}.")
     return to_tensors({"convs": convs, "acts": acts, "tail": tail}, device)
+
+
+def to_torch(params: dict) -> dict[str, torch.Tensor]:
+    """The inverse of from_torch: a CPU float32 state dict in the
+    reference's key layout."""
+    sd = {}
+    for i, (conv_p, act_p) in enumerate(zip(params["convs"], params["acts"])):
+        sd.update(conv_to_torch(conv_p, f"body.{2 * i}."))
+        if "alpha" in act_p:
+            sd[f"body.{2 * i + 1}.weight"] = act_p["alpha"]
+    sd.update(conv_to_torch(params["tail"], f"body.{2 * len(params['convs'])}."))
+    return cpu_state_dict(sd)
 
 
 def from_jax(np_params: dict, device: str | torch.device = "cpu") -> dict:

@@ -24,9 +24,12 @@ __all__ = [
     "load_state_dict",
     "dni_blend",
     "conv_from_torch",
+    "conv_transpose_from_torch",
     "prelu_from_torch",
     "subdict",
     "to_tensors",
+    "conv_to_torch",
+    "cpu_state_dict",
 ]
 
 
@@ -63,6 +66,16 @@ def conv_from_torch(sd: Mapping[str, np.ndarray], prefix: str) -> dict:
     return out
 
 
+def conv_transpose_from_torch(sd: Mapping[str, np.ndarray], prefix: str) -> dict:
+    """torch ConvTranspose2d -> {'w': (I, O, kh, kw) as stored, 'b': (O,)?}:
+    ops.conv_transpose2d takes torch's own layout, so unlike the JAX
+    package's import nothing is flipped or transposed."""
+    out = {"w": sd[prefix + "weight"].copy()}
+    if prefix + "bias" in sd:
+        out["b"] = sd[prefix + "bias"].copy()
+    return out
+
+
 def prelu_from_torch(sd: Mapping[str, np.ndarray], prefix: str) -> dict:
     return {"alpha": sd[prefix + "weight"].copy()}
 
@@ -76,3 +89,18 @@ def to_tensors(tree, device="cpu", dtype=torch.float32):
         return [to_tensors(v, device, dtype) for v in tree]
     t = tree if torch.is_tensor(tree) else torch.from_numpy(np.array(tree))
     return t.to(device=device, dtype=dtype)
+
+
+def conv_to_torch(p: Mapping[str, torch.Tensor], prefix: str) -> dict[str, torch.Tensor]:
+    """The inverse of conv_from_torch: {'w': HWIO, 'b'?} -> torch Conv2d's
+    `prefix`weight (O, I, kh, kw) and `prefix`bias."""
+    out = {prefix + "weight": p["w"].permute(3, 2, 0, 1)}
+    if "b" in p:
+        out[prefix + "bias"] = p["b"]
+    return out
+
+
+def cpu_state_dict(sd: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """A state dict of contiguous CPU float32 tensors, as torch.save
+    writes a checkpoint."""
+    return {k: v.detach().to("cpu", torch.float32).contiguous() for k, v in sd.items()}

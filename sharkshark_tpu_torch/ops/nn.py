@@ -1,11 +1,11 @@
 """Core NN primitives on NHWC tensors with HWIO weights (the JAX package's
 layout), computed by PyTorch's own ops.
 
-`conv2d` views the NHWC input as a channels_last NCHW tensor (a permute,
-no copy), so cuDNN runs its channels_last kernels and the output permutes
-back to contiguous NHWC for free.  The TPU layout tricks of the JAX
-package (pixel_shuffle_mxu, lane folding, pair folding) compute these
-same functions and have no counterpart here.
+`conv2d` and `conv_transpose2d` view the NHWC input as a channels_last
+NCHW tensor (a permute, no copy), so cuDNN runs its channels_last kernels
+and the output permutes back to contiguous NHWC for free.  The TPU layout
+tricks of the JAX package (pixel_shuffle_mxu, lane folding, pair folding)
+compute these same functions and have no counterpart here.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = [
-    "conv2d", "prelu", "leaky_relu", "relu6", "pixel_shuffle", "space_to_depth",
+    "conv2d", "conv_transpose2d", "prelu", "leaky_relu", "relu6", "pixel_shuffle", "space_to_depth",
     "pad2d", "max_pool2",
 ]
 
@@ -39,18 +39,43 @@ def conv2d(
     return y.permute(0, 2, 3, 1)
 
 
+def conv_transpose2d(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor | None = None,
+    stride: int = 1,
+    padding: int = 0,
+    output_padding: int = 0,
+) -> torch.Tensor:
+    """Transposed conv with torch ConvTranspose2d semantics. x: NHWC, w:
+    torch's own (I, O, kh, kw) layout, unflipped (the JAX package stores
+    it spatially flipped, HWIO, for its input-dilated formulation).  Out
+    spatial = (in - 1) * stride - 2 * padding + kernel + output_padding,
+    e.g. FSRCNN's deconv head."""
+    y = F.conv_transpose2d(
+        x.permute(0, 3, 1, 2),
+        w.to(x.dtype),
+        None if b is None else b.to(x.dtype),
+        stride=stride,
+        padding=padding,
+        output_padding=output_padding,
+    )
+    return y.permute(0, 2, 3, 1)
+
+
 def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     """PReLU with per-channel alpha (last axis): x where x >= 0, else
     alpha * x, in one elementwise pass over the channels_last view."""
     return F.prelu(x.permute(0, 3, 1, 2), alpha.to(x.dtype)).permute(0, 2, 3, 1)
 
 
-def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
+def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2, inplace: bool = False) -> torch.Tensor:
     """x where x >= 0, else x * slope, with the slope rounded to x's dtype
     first (the JAX package multiplies by the slope as an array of x's
-    dtype), then the product rounded once."""
+    dtype), then the product rounded once.  inplace overwrites x (for
+    tensors that autograd does not track)."""
     slope = torch.tensor(negative_slope, dtype=x.dtype).item()
-    return F.leaky_relu(x, slope)
+    return F.leaky_relu(x, slope, inplace=inplace)
 
 
 def relu6(x: torch.Tensor) -> torch.Tensor:

@@ -35,7 +35,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..models import bsvd, egvsr, srvgg, torch_import
+from ..models import bsvd, egvsr, fsrcnn, srvgg, torch_import, zoo
 from ..runtime import BaseService, Profiler
 from ..utils import get_logger, resolve_device
 from .levels import LR_LEVELS
@@ -231,16 +231,23 @@ def _fast_epilogue_ratio(lr_shape, output_shape) -> tuple[int, int] | None:
 
 class EsrganUpscalerService(BaseUpscalerService):
     """Production upscaler (reference FsrcnnUpscalerService,
-    fsrcnn_upscaler.py:86-326) for upscaler_model='realesrgan'.
+    fsrcnn_upscaler.py:86-326).  upscaler_model: 'realesrgan' (SRVGG
+    general-x4v3 with DNI blending of weights_wdn, and the fused epilogue
+    where the output ratio allows it), 'fsrcnn' (RGB riding the batch
+    dimension), or a model zoo name (models/zoo.py: RRDBNet or SRVGG,
+    DNI blending from the weight directory; seeded weights, with a
+    warning, when `weights` is None and the zoo's files are absent).  A
+    `weights` file that is named but absent raises.
 
     device: 'cuda' (default) or 'cpu'; a CUDA device on a host without
     CUDA raises here, at construction.  tsm_pair: BSVD's warm mem blocks
     through K2's wrapper (bsvd.chunk_step), which makes the same two K1
     launches as the default route; off by default.  conv_stack: the SRVGG
-    body through K4, that many layers a call (srvgg.apply; 0 = layer by
+    body of the model that runs (srvgg_cfg, or a zoo entry's config)
+    through K4, that many layers a call (srvgg.apply; 0 = layer by
     layer); None takes srvgg.DEFAULT_CONV_STACK where K4 can run the
-    config and 0 where it cannot; a number K4 cannot take for the config
-    raises here.
+    config and 0 where it cannot, or where the model has no SRVGG body; a
+    number K4 cannot take for the config raises here.
     coalesce_max: merge queued same-shape requests into one dispatch
     (forced to 1 when denoising: the BSVD stream is temporal, its chunk
     is not a batch)."""
@@ -269,15 +276,14 @@ class EsrganUpscalerService(BaseUpscalerService):
         coalesce_max: int = 1,
     ) -> None:
         super().__init__(name="EsrganUpscaler")
-        if upscaler_model != "realesrgan":
-            raise ValueError(
-                f"upscaler_model {upscaler_model!r} is not ported yet: the PyTorch "
-                "port runs 'realesrgan' only (ROADMAP.md lists the other models)"
-            )
+        if upscaler_model not in ("realesrgan", "fsrcnn") and upscaler_model not in zoo.ZOO:
+            raise ValueError(f"upscaler_model {upscaler_model!r} unknown; choose from "
+                             f"{sorted({'realesrgan', 'fsrcnn'} | set(zoo.ZOO))}")
         self.device = resolve_device(device)
         self.pix_fmt = pix_fmt
         self.lr_shape = LR_LEVELS[lr_level]
-        self.scale = 4
+        entry = zoo.ZOO.get(upscaler_model)
+        self.scale = entry.scale if entry else 4
         self.output_shape = output_shape
         self.on_queue = on_queue
         self.denoising = denoising
@@ -293,7 +299,13 @@ class EsrganUpscalerService(BaseUpscalerService):
         self.bsvd_cfg = bsvd_cfg
         self.fast_epilogue = fast_epilogue
         self.tsm_pair = tsm_pair
-        self.conv_stack = srvgg.resolve_conv_stack(srvgg_cfg, conv_stack)
+        body_cfg = srvgg_cfg if upscaler_model == "realesrgan" else entry.cfg if entry else None
+        if isinstance(body_cfg, srvgg.SRVGGConfig):
+            self.conv_stack = srvgg.resolve_conv_stack(body_cfg, conv_stack)
+        elif conv_stack:
+            raise ValueError(f"conv_stack={conv_stack}: {upscaler_model} has no SRVGG body for K4")
+        else:
+            self.conv_stack = 0
         self.coalesce_max = 1 if denoising else max(1, coalesce_max)
 
     def _load_srvgg_params(self) -> dict:
@@ -307,6 +319,46 @@ class EsrganUpscalerService(BaseUpscalerService):
             sd_wdn = torch_import.load_state_dict(self.weights_wdn)
             sd = torch_import.dni_blend(sd, sd_wdn, self.denoise_rate)
         return srvgg.from_torch(sd, self.srvgg_cfg, self.device)
+
+    def _build_sr(self):
+        """(sr_apply(params, x), float32 params on the device) of the SR
+        model that runs, as the JAX package's proc_init builds them."""
+        if self.upscaler_model == "fsrcnn":
+            if self.weights is not None:
+                params = fsrcnn.from_torch(torch_import.load_state_dict(self.weights), self.device)
+            else:
+                log.warning("no FSRCNN weights given; using random init")
+                params = fsrcnn.init_params(torch.Generator().manual_seed(0), device=self.device)
+            return fsrcnn.apply_rgb, params
+
+        if self.upscaler_model in zoo.ZOO:
+            kw = dict(denoise_strength=self.denoise_rate, device=self.device, conv_stack=self.conv_stack)
+            try:
+                sr_apply, params, _ = zoo.build_sr_model(self.upscaler_model, model_path=self.weights, **kw)
+            except FileNotFoundError as ex:
+                if self.weights is not None:
+                    raise
+                log.warning("%s; using random init", ex)
+                sr_apply, params, _ = zoo.build_sr_model(self.upscaler_model, random_init=True, **kw)
+            return sr_apply, params
+
+        cfg = self.srvgg_cfg
+        params = self._load_srvgg_params()
+        ratio = None
+        if self.fast_epilogue and cfg.upscale == 4 and self.output_shape:
+            ratio = _fast_epilogue_ratio(self.lr_shape, self.output_shape)
+        if ratio:
+            log.info("fast epilogue active (fused ps4 + bicubic %d/%d)", *ratio)
+
+            def sr_apply(p, x, r=ratio):
+                return srvgg.apply_down_rational(p, x, r[0], r[1], cfg=cfg, conv_stack=self.conv_stack)
+
+        else:
+
+            def sr_apply(p, x):
+                return srvgg.apply(p, x, cfg=cfg, conv_stack=self.conv_stack)
+
+        return sr_apply, params
 
     def proc_init(self) -> None:
         # idempotent, so callers can build and warm the service on their
@@ -322,25 +374,10 @@ class EsrganUpscalerService(BaseUpscalerService):
             pix_fmt=self.pix_fmt,
         )
         self.spec = spec
-        cfg = self.srvgg_cfg
-        # weights live on the device in the compute dtype, cast once
-        sr_params = torch_import.to_tensors(self._load_srvgg_params(), self.device, self.compute_dtype)
-
-        ratio = None
-        if self.fast_epilogue and cfg.upscale == 4 and self.output_shape:
-            ratio = _fast_epilogue_ratio(self.lr_shape, self.output_shape)
-        if ratio:
-            log.info("fast epilogue active (fused ps4 + bicubic %d/%d)", *ratio)
-
-            def sr_apply(p, x, r=ratio):
-                return srvgg.apply_down_rational(p, x, r[0], r[1], cfg=cfg, conv_stack=self.conv_stack)
-
-        else:
-
-            def sr_apply(p, x):
-                return srvgg.apply(p, x, cfg=cfg, conv_stack=self.conv_stack)
-
+        sr_apply, sr_params = self._build_sr()
         self._sr_apply = sr_apply
+        # weights live on the device in the compute dtype, cast once
+        sr_params = torch_import.to_tensors(sr_params, self.device, self.compute_dtype)
         self._sr_params = sr_params
 
         if self.denoising:

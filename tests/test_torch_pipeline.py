@@ -26,7 +26,7 @@ from sharkshark_tpu.models import torch_import as jti
 from sharkshark_tpu.upscale import steps as jsteps
 from sharkshark_tpu_torch import pipeline as pipeline_mod
 from sharkshark_tpu_torch.main import upscaler as cli
-from sharkshark_tpu_torch.models import egvsr, srvgg
+from sharkshark_tpu_torch.models import egvsr, fsrcnn, srvgg, zoo
 from sharkshark_tpu_torch.pipeline import UpscalePipeline
 from sharkshark_tpu_torch.runtime import EOF
 from sharkshark_tpu_torch.stream import BufferedOutputStream, Recoder, Streamer, grabber
@@ -234,12 +234,52 @@ def test_cli_parser_surface():
     assert args.model == "realesrgan" and args.device == "cpu"
 
 
-@pytest.mark.parametrize("argv", [["--model", "fsrcnn"], ["--model", "RealESRGAN_x4plus"],
-                                  ["--mesh", "1,2"]])
+@pytest.mark.parametrize("argv", [["--mesh", "1,2"]])
 def test_cli_refuses_what_is_not_ported(argv, capsys):
     with pytest.raises(SystemExit):
         cli.main(["--url", "x", "--device", "cpu", *argv])
     assert "ROADMAP" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("name", ["fsrcnn_x3", "realesr-animevideov4"])
+def test_cli_refuses_an_unknown_model(name, capsys):
+    """As the JAX CLI: the error names the model and lists the known ones."""
+    with pytest.raises(SystemExit):
+        cli.main(["--url", "x", "--device", "cpu", "--model", name])
+    err = capsys.readouterr().err
+    assert f"--model {name!r} unknown" in err
+    for known in ("realesrgan", "fsrcnn", "egvsr", *zoo.ZOO):
+        assert repr(known) in err
+
+
+class _RecordingPipeline:
+    """Stands in for UpscalePipeline: records what the CLI builds it with."""
+
+    built = []
+
+    def __init__(self, **kw):
+        self.built.append(kw)
+        self.recoder = self.upscaler = self.streamer = self
+
+    def start(self):
+        pass
+
+    def join(self):
+        pass
+
+    def check_proc(self):
+        pass
+
+
+@pytest.mark.parametrize("name", ["fsrcnn", *zoo.ZOO])
+def test_cli_takes_every_model_name(name, monkeypatch):
+    """fsrcnn and every zoo name get past parsing to the pipeline, on the
+    service's model switch."""
+    monkeypatch.setattr(pipeline_mod, "UpscalePipeline", _RecordingPipeline)
+    _RecordingPipeline.built.clear()
+    cli.main(["--url", "x", "--device", "cpu", "--model", name])
+    (kw,) = _RecordingPipeline.built
+    assert kw["upscaler_model"] == name and kw["device"] == "cpu" and "upscaler" not in kw
 
 
 def test_youtube_url_names_the_roadmap():
@@ -247,11 +287,21 @@ def test_youtube_url_names_the_roadmap():
         Recoder(url="https://www.youtube.com/watch?v=x")
 
 
-@pytest.mark.parametrize("model,extra_frames", [("egvsr", 0), ("realesrgan", 8)])
+@pytest.mark.parametrize("model,extra_frames", [("egvsr", 0), ("realesrgan", 8), ("fsrcnn", 8),
+                                                ("realesr-animevideov3", 8)])
 def test_cli_through_fake_ffmpeg(tmp_path, monkeypatch, model, extra_frames):
     """The CLI on the CPU with tests/fake_ffmpeg.py standing in for
     ffmpeg, at a tiny ladder: 8 frames in, every frame out once (plus the
-    denoise path's drained lookahead, min(8, 16))."""
+    denoise path's drained lookahead, min(8, 16)).  fsrcnn and the zoo's
+    realesr-animevideov3 run seeded weights written to a .pth."""
+    weights = []
+    if model in ("fsrcnn", "realesr-animevideov3"):
+        g = torch.Generator().manual_seed(9)
+        sd = (fsrcnn.to_torch(fsrcnn.init_params(g)) if model == "fsrcnn"
+              else srvgg.to_torch(srvgg.init_params(g, srvgg.ANIMEVIDEO_V3)))
+        torch.save(sd, tmp_path / "sr.pth")
+        weights = ["--weights", str(tmp_path / "sr.pth")]
+    monkeypatch.setattr(zoo, "_download", lambda url, path: pytest.fail(f"download of {url}"))
     fake = tmp_path / "ffmpeg"
     fake.write_text(f'#!/bin/sh\nexec "{sys.executable}" "{ROOT / "tests" / "fake_ffmpeg.py"}" "$@"\n')
     fake.chmod(0o755)
@@ -265,5 +315,5 @@ def test_cli_through_fake_ffmpeg(tmp_path, monkeypatch, model, extra_frames):
     monkeypatch.setitem(grabber.QUALITY_RESOLUTION, "tiny", (LR[1], LR[0]))
     out = tmp_path / "out.raw"
     cli.main(["--url", str(src), "--quality", "tiny", "--fps", "4", "--no-frame-skips",
-              "--output-file", str(out), "--device", "cpu", "--model", model, "--no-overlay"])
+              "--output-file", str(out), "--device", "cpu", "--model", model, "--no-overlay", *weights])
     assert os.path.getsize(out) == (8 + extra_frames) * OUT[0] * OUT[1] * 3

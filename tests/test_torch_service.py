@@ -218,5 +218,5 @@ def test_service_default_device_is_cuda():
     params = inspect.signature(EsrganUpscalerService).parameters
     assert params["device"].default == "cuda"
     assert params["compute_dtype"].default == torch.bfloat16
-    with pytest.raises(ValueError, match="not ported"):
-        EsrganUpscalerService(upscaler_model="fsrcnn", device="cpu")
+    with pytest.raises(ValueError, match="unknown"):
+        EsrganUpscalerService(upscaler_model="fsrcnn_x3", device="cpu")
