@@ -64,6 +64,17 @@ Phases (any failure exits non-zero, and nothing is caught):
      against the CPU by PSNR, with the reference's spread; upscale_image
      whole and in 256-pixel tiles; pipeline_folder (a child CLI on the
      card, then a skip);
+ 11. the HTTP image service at full width (SRVGG general-x4v3, the minted
+     weights, bf16): the port's ImageBackend (memory cache) and a
+     CacheFrontend on loopback ports; single uploads (1280x720 JPEG,
+     500x375 RGBA PNG, mono PNG, 1600x1200, the 4096x2048 cap), each
+     checked for status, type and size, with its wall time, the
+     backend's spans, 32 K4 launches and, at the cap, peak memory; a
+     small RGBA upload against the port's backend on the CPU in float32
+     by PSNR; 8 concurrent uploads of one bucket in fewer dispatches,
+     each against its lone run; a frontend miss and a hit of identical
+     bytes; ~10 s of tools/load_test.py through the frontend (16 workers,
+     8 images, no errors); the backend's CLI started as a user starts it;
 then one JSON line of kernel numbers, the card's name and power limit,
 and the result line last.  Exits 2 without a result when CUDA is
 unavailable or the script stands outside the repo checkout.
@@ -984,6 +995,411 @@ def run_zoo_phase(service_mod, counters, bench, card: str) -> dict:
     return res
 
 
+# -------------------------------------------------------------- phase 11
+
+
+def encode_image(arr: np.ndarray, fmt: str, mode: str | None = None) -> bytes:
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(arr, mode).save(buf, format=fmt)
+    return buf.getvalue()
+
+
+def decode_image(data: bytes):
+    from PIL import Image
+
+    return Image.open(io.BytesIO(data))
+
+
+def request_sizes(w: int, h: int) -> tuple[tuple[int, int], tuple[int, int]]:
+    """For a w x h upload: the (height, width) of the bucket that the
+    backend hands the service (the pre-scale, then padding up to the
+    64-pixel grid, or the crop to it at the cap), and the (width, height)
+    of its answer (the unpadded or cropped size, 4x, the post-scale;
+    cv2.resize rounds its fx/fy sizes to nearest, ties to even, as
+    Python's round)."""
+    from sharkshark_tpu_torch.image_server import backend as backend_mod
+
+    pre, post = backend_mod.ImageBackend._scales(h, w)
+    if pre < 1.0:
+        w, h = round(w * pre), round(h * pre)
+    b = backend_mod.SHAPE_BUCKET
+    bucket = (-(-h // b) * b, -(-w // b) * b)
+    if bucket[0] * bucket[1] > backend_mod.MAX_PIXELS:
+        w, h = max(b, w // b * b), max(b, h // b * b)
+        bucket = (h, w)
+    w, h = 4 * w, 4 * h
+    if post < 1.0:
+        w, h = round(w * post), round(h * post)
+    return bucket, (w, h)
+
+
+def expected_out_size(w: int, h: int) -> tuple[int, int]:
+    """(width, height) of the backend's answer to a w x h upload."""
+    return request_sizes(w, h)[1]
+
+
+def check_k4_at_image_shapes(bench_cs, shapes: list[tuple[int, int, int]], card: str) -> list[dict]:
+    """K4 (L = 1 with bias, as the service runs it) against
+    fused_conv_stack_plain on the card at every (n, h, w, 64) that the
+    image path gave it, within phase 3's tolerance (0.02 x max(|ref|max,
+    1)) on seeded inputs, then timed beside the plain version, the
+    layer-by-layer route and the bound (bench_conv_stack.measure)."""
+    rows = []
+    for shape in shapes:
+        row = bench_cs.measure(1, True, shape=shape, reps=5)
+        rows.append({k: row[k] for k in ("shape", "max_abs_err", "ref_max", "kernel_ms", "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by")})
+        log(f"fused_conv_stack at the image path's {tuple(row['shape'])}: max|err| {row['max_abs_err']:.4g} "
+            f"(limit {bench_cs.TOL * max(row['ref_max'], 1.0):.4g}); kernel {row['kernel_ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, conv2d+bias+prelu route {row['library_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}) on {card}")
+    return rows
+
+
+# the backend's per-request spans (runtime.Profiler, seconds), in order
+SPANS = ("endpoint.io.read", "endpoint.io.imdecode", "upscaler.upscale", "upscaler.fetch", "endpoint.proc",
+         "endpoint.write")
+
+
+def run_image_service(counters, card: str) -> dict:
+    """Phase 11: the port's HTTP image service on the card.  The backend
+    (SRVGG general-x4v3 with the minted weights, bf16, K4 one layer a
+    launch, memory cache) and a cache frontend in front of it, on
+    loopback ports; single requests of five kinds (sizes, content type,
+    K4 launches, wall ms, the cap's peak memory), one small RGBA request
+    against the port's backend on the CPU in float32, 8 concurrent
+    requests of one bucket against their lone runs, a frontend miss and
+    hit, ~10 s of tools/load_test.py through the frontend (8 images, so
+    all but 8 requests are the frontend's cache hits) and a load run of
+    distinct images (every request a miss that reaches the card); then
+    K4 against its plain version at every shape the phase gave it."""
+    import concurrent.futures
+    import threading
+
+    from sharkshark_tpu_torch.image_server import CacheFrontend, ImageBackend, serve_background
+    from sharkshark_tpu_torch.image_server.http_util import post_file
+    from sharkshark_tpu_torch.tools import bench_conv_stack as bench_cs
+    from sharkshark_tpu_torch.tools import load_test
+    from sharkshark_tpu_torch.upscale.service import EsrganUpscalerService
+
+    t_phase = time.perf_counter()
+    weights = str(MINTED / "srvgg-derived-x4.pth")
+    servers, services = [], []
+
+    def serve(app) -> str:
+        httpd = serve_background(app, port=0)
+        servers.append(httpd)
+        return f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def backend(**kw):
+        b = ImageBackend(**kw)
+        services.append(b)
+        return b, serve(b.app)
+
+    def k4_only(launches: dict, n: int, what: str) -> None:
+        others = {k: v for k, v in launches.items() if k != "fused_conv_stack" and v}
+        assert launches["fused_conv_stack"] == n and not others, f"{what}: launches {launches}, {n} K4 expected"
+
+    # K4's launches over the whole phase, across the per-step resets
+    k4_total = [0]
+
+    def step_reset() -> None:
+        k4_total[0] += counters.read()["fused_conv_stack"]
+        counters.reset()
+
+    # the (n, h, w) of every K4 call on the card in this phase (SRVGG's
+    # body calls it through the module), held against the plain version
+    # at the end
+    cs = counters.cs
+    k4_call, k4_shapes = cs.fused_conv_stack, set()
+
+    def recording(x, *args, **kw):
+        if x.device.type == "cuda":
+            k4_shapes.add(tuple(x.shape[:3]))
+        return k4_call(x, *args, **kw)
+
+    cs.fused_conv_stack = recording
+    counters.reset()
+    res: dict = {"card": card}
+    want_shapes = {(1, 64, 64)}
+    try:
+        be, be_url = backend(use_cache=True, weights=weights)
+        fe = CacheFrontend(backend_url=f"{be_url}/upscale/image")
+        fe_url = serve(fe.app)
+        svc = be.get_pipeline()
+        assert svc.device.type == "cuda" and svc.conv_stack == 1 and svc.coalesce_max == 8, (
+            svc.device, svc.conv_stack, svc.coalesce_max)
+        step_reset()
+        # the service loads its weights on its worker thread: one small
+        # request waits for that, so the timed requests below do not
+        status, body = post_file(f"{be_url}/upscale/image", encode_image(make_frames(1, 64, 64, seed=50)[0], "PNG"))
+        assert status == 200, body[:300]
+
+        # (2) single requests, each checked for status, type and size
+        frames_720 = make_frames(1, 720, 1280, seed=51)[0]
+        rgb = make_frames(1, 375, 500, seed=52)[0]
+        ramp = np.linspace(0, 255, rgb.shape[1], dtype=np.float32).astype(np.uint8)  # alpha: a ramp
+        rgba = np.concatenate([rgb, np.broadcast_to(ramp[None, :, None], rgb.shape[:2] + (1,))], axis=-1)
+        mono = make_frames(1, 480, 640, seed=53)[0].mean(-1).astype(np.uint8)
+        cases = [
+            ("1280x720 jpeg", encode_image(frames_720, "JPEG"), "image/jpeg", "RGB"),
+            ("500x375 rgba png", encode_image(rgba, "PNG", "RGBA"), "image/png", "RGBA"),
+            ("640x480 mono png", encode_image(mono, "PNG", "L"), "image/jpeg", "RGB"),
+            ("1600x1200 jpeg", encode_image(make_frames(1, 1200, 1600, seed=54)[0], "JPEG"), "image/jpeg", "RGB"),
+            ("4096x2048 jpeg (cap)", encode_image(make_frames(1, 2048, 4096, seed=55)[0], "JPEG"), "image/jpeg", "RGB"),
+        ]
+        rows = []
+        for name, data, ctype, mode in cases:
+            src = decode_image(data).size
+            want_shapes.add((1, *request_sizes(*src)[0]))
+            if name.endswith("(cap)"):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+            step_reset()
+            t0 = time.perf_counter()
+            status, reply = post_file(f"{be_url}/upscale/image", data, params={"return_type": "url"}, timeout=300)
+            wall = (time.perf_counter() - t0) * 1e3
+            launches = counters.read()
+            assert status == 200, f"{name}: {status} {reply[:300]!r}"
+            reply = json.loads(reply)
+            assert reply["cache"] == "miss", reply
+            body = get_bytes(f"{be_url}{reply['url']}")
+            out = decode_image(body)
+            want = expected_out_size(*src)
+            assert out.size == want and out.mode == mode, f"{name}: {out.size} {out.mode}, expected {want} {mode}"
+            assert {b"\xff\xd8": "image/jpeg"}.get(body[:2], "image/png") == ctype, f"{name}: not {ctype}"
+            k4_only(launches, 32, name)
+            # the backend's spans: read and decode the upload, the service
+            # (queue, dispatch, device, copy back), then crop, post-scale,
+            # alpha and encode
+            spans = {k.split(".", 1)[1]: v * 1e3 for k, v in reply["profiler"].items()
+                     if k in SPANS and isinstance(v, float) and v >= 0}
+            row = {"request": name, "in_size": list(src), "out_size": list(out.size), "content_type": ctype,
+                   "bytes_in": len(data), "bytes_out": len(body), "wall_ms": wall, "spans_ms": spans,
+                   "k4_launches": launches["fused_conv_stack"]}
+            if name.endswith("(cap)"):
+                row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+                row["request_mem_gb"] = (torch.cuda.max_memory_allocated() - held) / 1e9
+            rows.append(row)
+            log(f"image service {name}: {src[0]}x{src[1]} -> {out.size[0]}x{out.size[1]} {ctype} "
+                f"({len(body)} bytes), {wall:.3f} ms wall ("
+                + ", ".join(f"{k} {v:.1f}" for k, v in spans.items())
+                + f" ms), {launches['fused_conv_stack']} K4 launches"
+                + (f", peak device memory {row['peak_mem_gb']:.2f} GB ({row['request_mem_gb']:.2f} GB above "
+                   f"what was held before)" if "peak_mem_gb" in row else "") + f" on {card}")
+        res["requests"] = rows
+
+        # (3) card against the port on the CPU, float32, one small RGBA PNG
+        def cpu_factory(on_queue):
+            return EsrganUpscalerService(lr_level=3, denoising=False, batch_size=1, lr_hr_resize=False,
+                                         output_shape=None, coalesce_max=8, weights=weights, device="cpu",
+                                         compute_dtype=torch.float32, on_queue=on_queue)
+
+        cpu_be, cpu_url = backend(upscaler_factory=cpu_factory)
+        small = make_frames(1, 80, 96, seed=56)[0]
+        small = np.concatenate([small, np.full(small.shape[:2] + (1,), 180, np.uint8)], axis=-1)
+        data = encode_image(small, "PNG", "RGBA")
+        got, want = (post_file(f"{u}/upscale/image", data, timeout=300) for u in (be_url, cpu_url))
+        assert got[0] == want[0] == 200, (got[1][:300], want[1][:300])
+        got, want = (np.asarray(decode_image(r[1])) for r in (got, want))
+        assert got.shape == want.shape and got.shape[-1] == 4, (got.shape, want.shape)
+        ref_std = float(want[..., :3].std() / 255)
+        value = psnr(got[..., :3], want[..., :3])
+        res["card_vs_cpu"] = {"size": [96, 80], "out_shape": list(got.shape), "psnr_db": value, "ref_std": ref_std,
+                              "alpha_equal": bool((got[..., 3] == want[..., 3]).all())}
+        log(f"image service, card bf16 vs the port's backend on the CPU in float32, 96x80 RGBA PNG -> "
+            f"{got.shape[1]}x{got.shape[0]}: PSNR {value:.3f} dB (min {PSNR_MIN}), CPU output std {ref_std:.4f} "
+            f"(min 0.05), alpha equal {res['card_vs_cpu']['alpha_equal']}")
+        assert ref_std >= 0.05, f"the CPU output is near-constant (std {ref_std:.4f})"
+        assert value >= PSNR_MIN, f"image service card vs CPU: PSNR {value:.3f} dB below {PSNR_MIN}"
+
+        # (4) 8 concurrent requests of one bucket, against their lone runs
+        n = 8
+        blobs = [encode_image(f, "JPEG") for f in make_frames(n, 480, 640, seed=57)]
+        dispatched = []
+        orig = svc.upscale_dispatch
+
+        def counting(frames):
+            dispatched.append(len(frames))
+            return orig(frames)
+
+        svc.upscale_dispatch = counting
+        gate = threading.Barrier(n, timeout=60)
+
+        def post_together(blob):
+            gate.wait()
+            return post_file(f"{be_url}/upscale/image", blob, params={"return_type": "file"}, timeout=300)
+
+        step_reset()
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(n) as pool:
+            together = list(pool.map(post_together, blobs))
+        wall_together = time.perf_counter() - t0
+        launches = counters.read()
+        svc.upscale_dispatch = orig
+        lone_be, lone_url = backend(use_cache=False, weights=weights)
+        t0 = time.perf_counter()
+        lone = [post_file(f"{lone_url}/upscale/image", b, timeout=300) for b in blobs]
+        wall_lone = time.perf_counter() - t0
+        assert all(r[0] == 200 for r in together + lone), [r[0] for r in together + lone]
+        assert len(dispatched) < n and sum(dispatched) == n, f"the service did not coalesce: {dispatched}"
+        k4_only(launches, 32 * len(dispatched), "concurrent requests")
+        want_shapes.add((max(dispatched), *request_sizes(640, 480)[0]))
+        worst = min(psnr(np.asarray(decode_image(a[1])), np.asarray(decode_image(b[1])))
+                    for a, b in zip(together, lone))
+        res["concurrent"] = {"requests": n, "size": [640, 480], "dispatches": list(dispatched),
+                             "k4_launches": launches["fused_conv_stack"], "wall_s": wall_together,
+                             "lone_wall_s": wall_lone, "min_psnr_db": worst}
+        log(f"image service, {n} concurrent 640x480 JPEG requests: dispatches of {dispatched} "
+            f"({launches['fused_conv_stack']} K4 launches), wall {wall_together:.3f} s against {wall_lone:.3f} s one "
+            f"at a time; lowest PSNR against its lone run {worst:.3f} dB (min 45) on {card}")
+        assert worst >= 45.0, f"a concurrent request is {worst:.3f} dB from its lone run"
+
+        # (5) the frontend: a miss, then a hit that serves identical bytes
+        data = encode_image(make_frames(1, 240, 320, seed=58)[0], "JPEG")
+        stats0 = json.loads(get_bytes(f"{be_url}/upscale/stats"))
+        step_reset()
+        miss = post_file(f"{fe_url}/upscale/image", data, timeout=300)
+        hit = post_file(f"{fe_url}/upscale/image", data, timeout=300)
+        k4_only(counters.read(), 32, "frontend miss and hit")
+        assert miss[0] == hit[0] == 200, (miss, hit)
+        miss, hit = json.loads(miss[1]), json.loads(hit[1])
+        assert (miss["cache"], hit["cache"]) == ("miss", "hit") and miss["url"] == hit["url"], (miss, hit)
+        served = get_bytes(f"{fe_url}{hit['url']}")
+        direct = post_file(f"{be_url}/upscale/image", data, params={"return_type": "file"}, timeout=300)
+        assert direct[0] == 200 and served == direct[1], "the frontend's hit is not the backend's bytes"
+        stats1 = json.loads(get_bytes(f"{be_url}/upscale/stats"))
+        assert stats1["count"] - stats0["count"] == 2 and stats1["hitcount"] - stats0["hitcount"] == 1, (stats0, stats1)
+        assert stats1["worker_alive"]
+        res["frontend"] = {"miss": miss["cache"], "hit": hit["cache"], "bytes": len(served),
+                           "backend_stats": stats1}
+        log(f"image service frontend: miss then hit, {len(served)} identical bytes served; backend stats {stats1}")
+
+        # (6) the load test through the frontend, 16 workers over 8 images:
+        # each image's first request reaches the backend, every later one
+        # is a hit in the frontend's memory cache (the host's hit path)
+        images = [encode_image(f, "JPEG") for f in make_frames(8, 256, 256, seed=59)]
+        url = f"{fe_url}/upscale/image"
+        step_reset()
+        cal = load_test.run(url, images, workers=16, rounds=1, requests_per_round=128)
+        per_request = cal["seconds"] / cal["requests"]
+        rounds = max(1, round((10.0 - cal["seconds"]) / (256 * per_request)))
+        hits = load_test.run(url, images, workers=16, rounds=rounds, requests_per_round=256)
+        launches = counters.read()
+        for run in (cal, hits):
+            run.pop("rounds")
+            assert run["err"] == 0 and run["ok"] == run["requests"], f"load test errors: {run}"
+        assert hits["hit"] == hits["requests"], f"the cache-hit rounds reached the backend: {hits}"
+        # 8 misses, coalesced into 1 to 8 dispatches of 32 launches
+        k4 = launches["fused_conv_stack"]
+        assert k4 % 32 == 0 and 32 <= k4 <= 8 * 32, f"load test: K4 launches {k4}"
+        k4_only(launches, k4, "load test")
+
+        # misses only: 128 distinct images, none sent before, so every
+        # request goes through the frontend to the backend and the card
+        fresh = [encode_image(f, "JPEG") for k in range(16) for f in make_frames(8, 256, 256, seed=100 + k)]
+        dispatched.clear()
+        svc.upscale_dispatch = counting
+        step_reset()
+        misses = load_test.run(url, fresh, workers=16, rounds=1, requests_per_round=len(fresh), unique=True)
+        miss_launches = counters.read()
+        svc.upscale_dispatch = orig
+        misses.pop("rounds")
+        assert misses["err"] == 0 and misses["hit"] == 0 and misses["ok"] == len(fresh), f"misses run: {misses}"
+        assert sum(dispatched) == len(fresh), f"misses run: dispatches {dispatched}"
+        k4_only(miss_launches, 32 * len(dispatched), "misses run")
+        misses["dispatches"] = len(dispatched)
+        misses["max_coalesced"] = max(dispatched)
+        misses["k4_launches"] = miss_launches["fused_conv_stack"]
+        res["load_test"] = {"first_round_8_misses": cal, "frontend_hits": hits, "rounds": rounds,
+                            "k4_launches": k4, "misses": misses}
+        for name, run in (("first round (8 misses, 120 frontend hits)", cal),
+                          (f"{rounds} rounds of 256 frontend cache hits", hits),
+                          (f"{len(fresh)} distinct images, misses only", misses)):
+            log(f"load test through the frontend, {name}: {run['requests']} requests, {run['err']} errors, "
+                f"{run['rps']:.1f} requests/s, p50 {run['p50_s'] * 1e3:.3f} ms, p99 {run['p99_s'] * 1e3:.3f} ms, "
+                f"hit share {run['hit_share']:.4f} on {card}")
+        log(f"misses run: {misses['dispatches']} dispatches (up to {misses['max_coalesced']} requests each), "
+            f"{misses['k4_launches']} K4 launches")
+    finally:
+        cs.fused_conv_stack = k4_call
+        for httpd in servers:
+            httpd.shutdown()
+            httpd.server_close()
+        for b in services:
+            if b._upscaler is not None:
+                b._upscaler.stop()
+    step_reset()
+    res["k4_launches"] = k4_total[0]
+    # K4 against its plain version at the shapes the image path gave it:
+    # the 64x64 bucket, the cap's, a coalesced dispatch, and the others
+    missing = want_shapes - k4_shapes
+    assert not missing, f"the image path did not give K4 {sorted(missing)}; it gave {sorted(k4_shapes)}"
+    res["k4_shapes"] = check_k4_at_image_shapes(bench_cs, sorted(k4_shapes), card)
+    counters.reset()
+    res["backend_cli"] = run_backend_cli(card)
+    res["wall_s"] = time.perf_counter() - t_phase
+    return res
+
+
+def run_backend_cli(card: str) -> dict:
+    """The backend as a user starts it, `python -m
+    sharkshark_tpu_torch.image_server.backend --use-cache --weights ...`
+    on a free loopback port (its main resolves the card and builds K4
+    before serving): the time until it answers a ping, then one upload
+    (a miss) and the same again (a hit)."""
+    import socket
+
+    from sharkshark_tpu_torch.image_server.http_util import post_file
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    url = f"http://127.0.0.1:{port}"
+    proc = subprocess.Popen([sys.executable, "-m", "sharkshark_tpu_torch.image_server.backend", "--host", "127.0.0.1",
+                             "--port", str(port), "--use-cache", "--weights", str(MINTED / "srvgg-derived-x4.pth")],
+                            cwd=ROOT)
+    try:
+        t0 = time.perf_counter()
+        while True:
+            try:
+                assert get_bytes(f"{url}/upscale/ping") == b"pong"
+                break
+            except OSError:
+                assert proc.poll() is None, f"the backend CLI exited with {proc.returncode}"
+                assert time.perf_counter() - t0 < 120, "the backend CLI did not answer within 120 s"
+                time.sleep(0.2)
+        up_s = time.perf_counter() - t0
+        data = encode_image(make_frames(1, 200, 300, seed=60)[0], "JPEG")
+        walls, caches = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            status, reply = post_file(f"{url}/upscale/image", data, params={"return_type": "url"}, timeout=300)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            assert status == 200, reply[:300]
+            caches.append(json.loads(reply)["cache"])
+        assert caches == ["miss", "hit"], caches
+        out = decode_image(get_bytes(f"{url}/upscale/file/{json.loads(reply)['url'].rsplit('/', 1)[1]}"))
+        assert out.size == expected_out_size(300, 200), out.size
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+    log(f"backend CLI: answered a ping {up_s:.3f} s after its start; a 300x200 upload {walls[0]:.3f} ms (miss), "
+        f"{walls[1]:.3f} ms (hit) on {card}")
+    return {"up_s": up_s, "miss_ms": walls[0], "hit_ms": walls[1]}
+
+
+def get_bytes(url: str) -> bytes:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as resp:
+        return resp.read()
+
+
+
 def kernel_entry(bench, name: str, source: str, replaces: str, launches: int, rows: list[dict]) -> dict:
     """One kernel of the `kernels` line: per launch, averaged over `rows`
     (the shapes the path gives it), with the bound of that same work."""
@@ -1095,6 +1511,11 @@ def main() -> int:
     zoo_res["wall_s"] = time.perf_counter() - t0
     log(f"phase 10 took {zoo_res['wall_s']:.1f} s")
 
+    # 11. the HTTP image service on the card
+    image_res = run_image_service(counters, card)
+    log(f"phase 11 took {image_res['wall_s']:.1f} s")
+    log(json.dumps({"image_service": image_res}))
+
     # the kernels line: launches from the main path's run, or, for a route
     # that is off by default, from the run with the routes on
     stack_row = next(r for r in stack_rows if r["layers"] == stack_l and r["bias"])
@@ -1118,6 +1539,7 @@ def main() -> int:
     zoo_cli = zoo_res["cli"][0]["launches"]  # animevideov3 with the default denoise
     kernels[0]["launches_zoo_cli"] = zoo_cli["tsm_conv"]
     kernels[3]["launches_zoo_cli"] = zoo_cli["fused_conv_stack"]
+    kernels[3]["launches_image_service"] = image_res["k4_launches"]
     for k in kernels:
         assert k["launches"] > 0, f"{k['name']} was not launched on its path"
     log(json.dumps({"defaults": defaults, "routes_on": routes_on, "route_timing": route_rows,

@@ -1,12 +1,11 @@
 """Ingest stage service: captures 1-second frame batches + audio segments.
 
-A copy of the JAX package's stream/recoder.py, behaviour unchanged except
-that YouTube ingest (stream/youtube.py there) is not ported yet: a
-YouTube URL raises NotImplementedError.
+A copy of the JAX package's stream/recoder.py, which imports no JAX.
 
 Rebuild of reference src/stream/recoder.py:26-190 (TwitchRecoder) on the
 thread-stage runtime: per tick it grabs `batch_sec*fps` frames from the
-image grabber (ffmpeg via grabber.ImageGrabber), optionally area-resizes to `output_shape`
+image grabber (ffmpeg via grabber.ImageGrabber, YouTube via
+youtube.YoutubeImageRecoder), optionally area-resizes to `output_shape`
 and stamps a received-count overlay, pairs the batch with one audio
 segment (with an optional `audio_skip`-batch delay queue for A/V sync,
 reference :138-141), and emits a RecoderEntry. EOF emits the runtime's
@@ -75,12 +74,6 @@ class Recoder(BaseService):
         max_reconnects: int = 0,
     ) -> None:
         assert isinstance(batch_sec, int)
-        if image_grabber is None and "youtube" in url:
-            raise NotImplementedError(
-                "YouTube ingest is not ported to sharkshark_tpu_torch yet "
-                "(stream/youtube.py; ROADMAP.md lists it); pass a Twitch URL "
-                "or a local file"
-            )
         super().__init__(name="Recoder")
         self.url = url
         self.batch_sec = batch_sec
@@ -101,11 +94,18 @@ class Recoder(BaseService):
 
     def proc_init(self) -> None:
         if self._image_grabber is None:
-            from .grabber import ImageGrabber
+            if "youtube" in self.url:
+                from .youtube import YoutubeImageRecoder
 
-            self._image_grabber = ImageGrabber(
-                self.url, quality=self.quality, fps=self.fps
-            ).start()
+                self._image_grabber = YoutubeImageRecoder(
+                    url=self.url, quality=self.quality, rate=self.fps
+                )
+            else:
+                from .grabber import ImageGrabber
+
+                self._image_grabber = ImageGrabber(
+                    self.url, quality=self.quality, fps=self.fps
+                ).start()
         if self._audio_grabber is None:
             from .grabber import AudioGrabber
 

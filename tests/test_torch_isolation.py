@@ -40,6 +40,8 @@ def test_importing_the_port_loads_no_jax():
         "import sharkshark_tpu_torch.models.egvsr, sharkshark_tpu_torch.stream\n"
         "import sharkshark_tpu_torch.ops.conv_stack, sharkshark_tpu_torch.upscale.tile\n"
         "import sharkshark_tpu_torch.models.srvgg, sharkshark_tpu_torch.models.bsvd\n"
+        "import sharkshark_tpu_torch.image_server, sharkshark_tpu_torch.stream.youtube\n"
+        "import sharkshark_tpu_torch.tools.load_test\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )

@@ -282,11 +282,6 @@ def test_cli_takes_every_model_name(name, monkeypatch):
     assert kw["upscaler_model"] == name and kw["device"] == "cpu" and "upscaler" not in kw
 
 
-def test_youtube_url_names_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Recoder(url="https://www.youtube.com/watch?v=x")
-
-
 @pytest.mark.parametrize("model,extra_frames", [("egvsr", 0), ("realesrgan", 8), ("fsrcnn", 8),
                                                 ("realesr-animevideov3", 8)])
 def test_cli_through_fake_ffmpeg(tmp_path, monkeypatch, model, extra_frames):
