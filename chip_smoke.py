@@ -75,6 +75,18 @@ Phases (any failure exits non-zero, and nothing is caught):
      each against its lone run; a frontend miss and a hit of identical
      bytes; ~10 s of tools/load_test.py through the frontend (16 workers,
      8 images, no errors); the backend's CLI started as a user starts it;
+ 12. the training driver (python -m sharkshark_tpu_torch.train.driver)
+     with the repo's three configs at their widths and crops (FRNet
+     nf 64 nb 10, SRVGG 64 x 32, BSVD-32) on derived datasets written
+     from seeded 640x640 stills: 30 iterations with a checkpoint every 10
+     (TF32 at PyTorch's default; the mean loss of the last 10 below the
+     first 10's, no kernel launched), a resume from the 20th, the step
+     timed alone (median of 10 after 3) with its peak memory, a resume
+     on the card bit for bit under deterministic algorithms, one step's
+     loss and gradients on the card (TF32 off) against the CPU (each
+     leaf within 1e-3, or twice its own float32 floor where higher),
+     test mode with the minted weights (FRNet's on the card and the CPU,
+     launching K3 once a frame), and profile mode;
 then one JSON line of kernel numbers, the card's name and power limit,
 and the result line last.  Exits 2 without a result when CUDA is
 unavailable or the script stands outside the repo checkout.
@@ -1392,6 +1404,334 @@ def run_backend_cli(card: str) -> dict:
     return {"up_s": up_s, "miss_ms": walls[0], "hit_ms": walls[1]}
 
 
+# -------------------------------------------------------------- phase 12
+
+# the three recipes the training driver ports, by generator name, with
+# their configs and the minted weights test mode loads
+TRAIN_RECIPES = {
+    "frnet": ("egvsr_derived.yml", "egvsr-derived-x4.pth"),
+    "srvgg": ("srvgg_derived.yml", "srvgg-derived-x4.pth"),
+    "bsvd": ("bsvd_derived.yml", "bsvd-derived-32.pth"),
+}
+TRAIN_ITERS, TRAIN_CKPT_FREQ = 30, 10
+
+
+@contextlib.contextmanager
+def cudnn_tf32(on: bool):
+    """cuDNN's TF32 setting for the block (PyTorch's default is on; the
+    card-against-CPU checks turn it off)."""
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+
+
+def write_training_data(tmp: Path) -> dict[str, Path]:
+    """The derived datasets of the three configs, from five seeded
+    textured 640x640 stills (still_000 held out for val), through the
+    port's tools/make_derived_dataset.py: 12 GT crops of 256 px in panned
+    sequences, LR = bicubic /4; T = 4 for FRNet and SRVGG (val: one
+    4-frame sequence), T = 8 for BSVD (val: one 8-frame sequence and its
+    copy with sigma-25 noise)."""
+    from sharkshark_tpu_torch.tools import make_derived_dataset as mdd
+
+    mdd.write_stills(str(tmp / "stills"), 5, 640, seed=12)
+    common = ["--src", str(tmp / "stills"), "--holdout", "still_000.png", "--seqs", "12", "--crop", "256",
+              "--scale", "4"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        mdd.main(common + ["--out", str(tmp / "derived"), "--tempo", "4", "--val-tempo", "4"])
+        mdd.main(common + ["--out", str(tmp / "derived_t8"), "--tempo", "8", "--val-tempo", "8",
+                           "--noisy-sigma", "25"])
+    # the configs' data paths -> these; the longer prefix is replaced first
+    return {"/tmp/ss4_derived_t8": tmp / "derived_t8", "/tmp/ss4_derived": tmp / "derived"}
+
+
+def training_config(driver, name: str, data: dict[str, Path], tmp: Path) -> dict:
+    """The recipe's config as committed (widths, crops, batch, T, rates),
+    with its data and checkpoint directories moved into `tmp`, 30
+    iterations, a checkpoint every 10, and no periodic test."""
+    opt = driver.load_config(str(ROOT / "configs" / TRAIN_RECIPES[name][0]))
+    for split in ("train", "test"):
+        for key in ("gt_seq_dir", "lr_seq_dir"):
+            path = opt["dataset"][split][key]
+            for old, new in data.items():
+                path = path.replace(old, str(new))
+            opt["dataset"][split][key] = path
+    opt["train"].update(total_iter=TRAIN_ITERS, ckpt_freq=TRAIN_CKPT_FREQ, ckpt_dir=str(tmp / f"ckpt_{name}"))
+    opt["logger"]["log_freq"] = TRAIN_CKPT_FREQ
+    opt["test"]["test_freq"] = 0
+    return opt
+
+
+def write_config(opt: dict, path: Path) -> str:
+    import yaml
+
+    path.write_text(yaml.safe_dump(opt))
+    return str(path)
+
+
+def leaf_rel_errs(got: list, want: list) -> list[float]:
+    return [float((a.detach().cpu().double() - b.detach().cpu().double()).norm()
+                  / b.detach().cpu().double().norm().clamp(min=1e-30)) for a, b in zip(got, want)]
+
+
+def leaf_names(tree, prefix: str = "") -> list[str]:
+    """Paths of a parameter tree's leaves, in param_leaves order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items() for n in leaf_names(v, f"{prefix}.{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree) for n in leaf_names(v, f"{prefix}[{i}]")]
+    return [prefix]
+
+
+def check_train_step_against_cpu(driver, opt: dict, batch: dict) -> dict:
+    """One step's loss and every gradient leaf, on the card (TF32 off)
+    against the CPU, on the same seeded weights and the driver's first
+    batch (for BSVD the same noisy clip).  A leaf must lie within 1e-3 of
+    the CPU's, or within twice its own float32 floor where that is
+    higher: the CPU's float32 gradient against the same step in float64
+    (the warp samples in float32 either way), taken only when a leaf
+    passes 1e-3.  FRNet's leaves, whose gradients at the seeded init sum
+    large terms of both signs, sit near 1e-3 in float32 on any device."""
+    from sharkshark_tpu_torch.train import denoise, vsr
+
+    def double(tree):
+        if isinstance(tree, dict):
+            return {k: double(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [double(v) for v in tree]
+        return tree.detach().double().requires_grad_(True)
+
+    def step(dev, dtype):
+        recipe = driver.build_training(opt, dev)
+        gt = torch.from_numpy(batch["gt"])
+        if isinstance(recipe.cfg, denoise.DenoiseTrainConfig):
+            x = denoise.noisy_input(recipe.cfg, gt, 0)[0]
+        else:
+            x = torch.from_numpy(batch["lr"])
+        params = recipe.state.params if dtype == torch.float32 else double(recipe.state.params)
+        leaves = vsr.param_leaves(params)
+        loss, _ = recipe.loss_fn(params, x.to(leaves[0].device, dtype), gt.to(leaves[0].device, dtype))
+        return float(loss.detach()), torch.autograd.grad(loss, leaves), leaf_names(params)
+
+    cpu, card = step("cpu", torch.float32), step("cuda", torch.float32)
+    rel = leaf_rel_errs(card[1], cpu[1])
+    floor = leaf_rel_errs(cpu[1], step("cpu", torch.float64)[1]) if max(rel) > 1e-3 else [None] * len(rel)
+    names = cpu[2]
+    worst = sorted(range(len(rel)), key=lambda i: -rel[i])[:3]
+    flat = [torch.cat([g.detach().cpu().double().flatten() for g in grads]) for grads in (card[1], cpu[1])]
+    return {"loss_cpu": cpu[0], "loss_card": card[0], "loss_rel_err": abs(card[0] - cpu[0]) / abs(cpu[0]),
+            "grad_rel_err_max": max(rel), "grad_leaves": len(rel),
+            "grad_rel_err_all": float((flat[0] - flat[1]).norm() / flat[1].norm()),
+            "worst_leaves": [[names[i], rel[i], floor[i]] for i in worst],
+            "leaves_over_bound": [names[i] for i in range(len(rel))
+                                  if rel[i] > 1e-3 and not rel[i] <= 2 * floor[i]]}
+
+
+TF32_PEAK_FLOPS = 495e12  # H100 SXM dense TF32, NVIDIA's data sheet
+
+
+def time_train_step(driver, opt: dict, batch: dict, warmup: int = 3, iters: int = 10) -> dict:
+    """ms per training iteration on one batch already on the card, each
+    iteration synchronised, median after `warmup`; the peak memory of
+    those iterations; the step's conv and matmul FLOPs (forward and
+    backward, FlopCounterMode) and its bound at the TF32 peak, which
+    cuDNN's convs use at PyTorch's default."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    recipe = driver.build_training(opt, "cuda")
+    lr = torch.from_numpy(batch["lr"]).cuda()
+    gt = torch.from_numpy(batch["gt"]).cuda()
+    state = recipe.state
+    counter = FlopCounterMode(display=False)
+    with counter:
+        state, _ = recipe.step(state, lr, gt)
+    flops = float(counter.get_total_flops())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    times = []
+    for i in range(warmup + iters):
+        t0 = time.perf_counter()
+        state, logs = recipe.step(state, lr, gt)
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    return {"ms_per_iter": ms, "ms_min": min(times), "ms_max": max(times),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "held_before_gb": held / 1e9,
+            "gflop": flops / 1e9, "tflops_per_s": flops / ms / 1e9, "bound_ms_tf32": flops / TF32_PEAK_FLOPS * 1e3}
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """PyTorch's deterministic implementations for the block (cuDNN's
+    deterministic convs, a sorted scatter for the warp's gather
+    backward)."""
+    old = (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic,
+           torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(old[0])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = old[1:]
+
+
+def check_resume_on_card(driver, opt: dict, loader, tmp: Path) -> dict:
+    """Four steps straight against two, a checkpoint, a fresh state
+    restored from it and two more, on four of the driver's batches on the
+    card.  With deterministic algorithms the two must agree bit for bit.
+    With PyTorch's defaults cuDNN's weight gradients and the warp's
+    gather backward add in a nondeterministic order, so there the
+    distance between the resumed and a straight run's parameters, over
+    the distance the straight run moved them, is reported beside the
+    same measure between two straight runs."""
+    from sharkshark_tpu_torch.train import checkpoint, vsr
+
+    batches = []
+    while len(batches) < 4:  # the loader may hold fewer than 4 batches an epoch
+        batches += [(torch.from_numpy(b["lr"]).cuda(), torch.from_numpy(b["gt"]).cuda()) for b in loader]
+    batches = batches[:4]
+
+    def params(steps: int, resume_at: int | None = None):
+        recipe = driver.build_training(opt, "cuda")
+        init = torch.cat([t.detach().flatten() for t in vsr.param_leaves(recipe.state.params)])
+        state = recipe.state
+        for i, (lr, gt) in enumerate(batches[:steps]):
+            if i == resume_at:
+                path = checkpoint.save_checkpoint(str(tmp / "resume"), state, state.step)
+                state = checkpoint.load_checkpoint(path, driver.build_training(opt, "cuda").state)
+            state, _ = recipe.step(state, lr, gt)
+        assert state.step == steps
+        return init, torch.cat([t.detach().flatten() for t in vsr.param_leaves(state.params)])
+
+    def rel(a, b, init):
+        return float((a - b).norm() / (b - init).norm())
+
+    init, straight = params(4)
+    _, again = params(4)
+    _, resumed = params(4, resume_at=2)
+    res = {"default_straight_vs_straight": rel(again, straight, init),
+           "default_resumed_vs_straight": rel(resumed, straight, init)}
+    with deterministic_algorithms():
+        _, straight = params(4)
+        _, resumed = params(4, resume_at=2)
+    res["deterministic_bit_identical"] = bool(torch.equal(resumed, straight))
+    return res
+
+
+def run_training_recipe(driver, counters, name: str, data: dict, tmp: Path, card: str) -> dict:
+    """One recipe through the driver: train 30 iterations (checkpoints at
+    10, 20, 30) and resume from the 20th, as a user runs them; the step
+    timed alone and held against the CPU; the resume on the card; test
+    mode with the minted weights on the card (FRNet's also on the CPU);
+    profile."""
+    res = {}
+    opt = training_config(driver, name, data, tmp)
+    cfg_path = write_config(opt, tmp / f"{name}.yml")
+    with cudnn_tf32(True):
+        counters.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run = driver.main(["--config", cfg_path, "--mode", "train"])
+        res["train_wall_s"] = time.perf_counter() - t0
+        res["train_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        res["train_launches"] = counters.read()
+        losses, k = run["losses"], TRAIN_CKPT_FREQ
+        assert run["iter"] == TRAIN_ITERS and len(losses) == TRAIN_ITERS, run["iter"]
+        assert all(np.isfinite(losses)), losses
+        first, last = float(np.mean(losses[:k])), float(np.mean(losses[-k:]))
+        assert last < first, f"{name}: the mean loss of the last {k} iterations {last} is not below the first's {first}"
+        want = [f"ckpt_{i:09d}" for i in range(k, TRAIN_ITERS + 1, k)]
+        assert [Path(p).name for p in run["checkpoints"]] == want, run["checkpoints"]
+        # training runs no kernel: K3 has no backward (forward_sequence
+        # warps with the plain gather) and BSVD's shift convs take the
+        # library route in float32
+        assert not any(res["train_launches"].values()), res["train_launches"]
+        res.update(losses=losses, loss_first10=first, loss_last10=last)
+        os.remove(run["checkpoints"][-1])
+        rerun = driver.main(["--config", cfg_path, "--mode", "train"])
+        assert Path(rerun["resumed_from"]).name == want[-2], rerun["resumed_from"]
+        assert rerun["iter"] == TRAIN_ITERS and len(rerun["losses"]) == k
+        assert all(np.isfinite(rerun["losses"])), rerun["losses"]
+        res["resumed_losses"] = rerun["losses"]
+        loader = driver.train_loader(opt)
+        batch = next(iter(loader))
+        res["timing"] = time_train_step(driver, opt, batch)
+        res["resume"] = check_resume_on_card(driver, opt, loader, tmp / name)
+        assert res["resume"]["deterministic_bit_identical"], res["resume"]
+    with cudnn_tf32(False):
+        res["card_vs_cpu"] = check_train_step_against_cpu(driver, opt, batch)
+        cmp = res["card_vs_cpu"]
+        assert cmp["loss_rel_err"] <= 1e-4 and not cmp["leaves_over_bound"], cmp
+        # test mode, minted weights: the card (through main) and the CPU
+        topt = {**opt, "model": {**opt["model"], "generator": {
+            **opt["model"]["generator"], "load_path": str(MINTED / TRAIN_RECIPES[name][1])}}}
+        topt["test"] = {**opt["test"], "res_dir": str(tmp / f"res_{name}_card")}
+        test_path = write_config(topt, tmp / f"{name}_test.yml")
+        counters.reset()
+        t0 = time.perf_counter()
+        card_res = driver.main(["--config", test_path, "--mode", "test"])["test"]
+        res["test_wall_s"] = time.perf_counter() - t0
+        res["test_launches"] = counters.read()
+        card_frames = sorted((tmp / f"res_{name}_card").rglob("*.png"))
+        res["test"] = {"psnr_card": card_res["PSNR"], "frames": len(card_frames),
+                       "ms_per_frame": res["test_wall_s"] * 1e3 / len(card_frames)}
+        k3 = res["test_launches"]["backward_warp"]
+        assert k3 == (len(card_frames) if name == "frnet" else 0), res["test_launches"]
+        if name == "frnet":
+            # K3's path, held against the CPU's plain warp
+            topt["test"]["res_dir"] = str(tmp / f"res_{name}_cpu")
+            res["test"]["psnr_cpu"] = driver.test(topt, device="cpu")["test"]["PSNR"]
+            res["test"]["frame_psnr_card_vs_cpu_db"] = [
+                psnr(np.asarray(_png(f)), np.asarray(_png(tmp / f"res_{name}_cpu" / f.relative_to(
+                    tmp / f"res_{name}_card")))) for f in card_frames]
+            assert abs(card_res["PSNR"] - res["test"]["psnr_cpu"]) <= 0.05, res["test"]
+            assert min(res["test"]["frame_psnr_card_vs_cpu_db"]) >= 45.0, res["test"]
+    with cudnn_tf32(True):
+        res["profile"] = driver.main(["--config", cfg_path, "--mode", "profile"])
+    log(f"training {name} ({TRAIN_RECIPES[name][0]}) on {card}: {TRAIN_ITERS} iterations in "
+        f"{res['train_wall_s']:.3f} s, loss {first:.1f} -> {last:.1f} (mean of the first / last {k}), peak "
+        f"{res['train_peak_gb']:.3f} GB; step {res['timing']['ms_per_iter']:.3f} ms (median of 10, "
+        f"{res['timing']['ms_min']:.3f}-{res['timing']['ms_max']:.3f}, peak {res['timing']['peak_gb']:.3f} GB, "
+        f"{res['timing']['gflop']:.3f} GFLOP, bound {res['timing']['bound_ms_tf32']:.3f} ms at the TF32 peak); "
+        f"resumed from {TRAIN_ITERS - k}: {k} more; resume on the card {res['resume']}; card vs CPU loss {cmp['loss_rel_err']:.2e}, "
+        f"grads {cmp['grad_rel_err_all']:.2e} (all), {cmp['grad_rel_err_max']:.2e} (max of {cmp['grad_leaves']} leaves; the worst [leaf, card vs CPU, "
+        f"CPU float32 vs float64]: {cmp['worst_leaves']}); test PSNR "
+        f"{card_res['PSNR']:.4f} dB ({res['test']}), K3 {k3}; profile {res['profile']['flops'] / 1e9:.3f} "
+        f"GFLOP a call, {res['profile']['params']} params, {res['profile']['fps']:.2f} calls/s")
+    return res
+
+
+def _png(path: Path):
+    from PIL import Image
+
+    return Image.open(path).convert("RGB")
+
+
+def run_training_phase(counters, card: str) -> dict:
+    """Phase 12: the FRNet, SRVGG and BSVD recipes through the training
+    driver on the card, at their configs' widths."""
+    from sharkshark_tpu_torch.train import driver
+
+    t_phase = time.perf_counter()
+    res = {}
+    build = ROOT / "sharkshark_tpu_torch" / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        t0 = time.perf_counter()
+        data = write_training_data(Path(tmp))
+        res["data_s"] = time.perf_counter() - t0
+        for name in TRAIN_RECIPES:
+            res[name] = run_training_recipe(driver, counters, name, data, Path(tmp), card)
+    res["wall_s"] = time.perf_counter() - t_phase
+    return res
+
+
 def get_bytes(url: str) -> bytes:
     import urllib.request
 
@@ -1516,6 +1856,11 @@ def main() -> int:
     log(f"phase 11 took {image_res['wall_s']:.1f} s")
     log(json.dumps({"image_service": image_res}))
 
+    # 12. the training driver's three recipes on the card
+    train_res = run_training_phase(counters, card)
+    log(f"phase 12 took {train_res['wall_s']:.1f} s")
+    log(json.dumps({"training": train_res}))
+
     # the kernels line: launches from the main path's run, or, for a route
     # that is off by default, from the run with the routes on
     stack_row = next(r for r in stack_rows if r["layers"] == stack_l and r["bias"])
@@ -1540,6 +1885,7 @@ def main() -> int:
     kernels[0]["launches_zoo_cli"] = zoo_cli["tsm_conv"]
     kernels[3]["launches_zoo_cli"] = zoo_cli["fused_conv_stack"]
     kernels[3]["launches_image_service"] = image_res["k4_launches"]
+    kernels[2]["launches_train_test"] = train_res["frnet"]["test_launches"]["backward_warp"]
     for k in kernels:
         assert k["launches"] > 0, f"{k['name']} was not launched on its path"
     log(json.dumps({"defaults": defaults, "routes_on": routes_on, "route_timing": route_rows,

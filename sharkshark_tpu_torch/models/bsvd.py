@@ -13,7 +13,10 @@ flushing are a per-conv window mask over the chunk's global frame
 indices.  Every temporal-shift conv goes through ops/tsm_conv.py: the
 CUDA kernel K1 on the card (per conv, or with tsm_pair per mem block of a
 warm chunk through K2's wrapper, which chains two K1 launches), the plain
-versions on the CPU.
+versions on the CPU.  Training asks for `shift_conv="library"`, which
+routes every shift conv through the shift-and-concatenate + cuDNN conv
+that the JAX package computes in XLA on this path: it takes float32 and
+has a backward, where K1 takes bf16 and has none.
 
 State is a dict of tensors with the JAX package's layout; its frame
 counter "t" is a Python int, so masks and ring offsets are decided on
@@ -32,8 +35,8 @@ from ..ops import tsm_conv as tsm
 from .torch_import import conv_from_torch, subdict, to_tensors
 
 __all__ = [
-    "BSVDConfig", "BSVD_32", "SHIFT_NUM", "init_params", "from_torch",
-    "from_jax", "init_stream_state", "chunk_step", "ring_to_fifo_state",
+    "BSVDConfig", "BSVD_32", "SHIFT_NUM", "SHIFT_CONV_ROUTES", "init_params", "from_torch",
+    "from_jax", "init_stream_state", "init_chunk_state", "chunk_step", "ring_to_fifo_state",
     "state_from_jax", "state_to_numpy",
 ]
 
@@ -50,6 +53,12 @@ class BSVDConfig(NamedTuple):
 BSVD_32 = BSVDConfig()
 
 SHIFT_NUM = 16  # buffered convs in temp1+temp2 == reference count_shift()
+
+# chunk_step's routes for the temporal-shift convs, to the function of
+# ops/tsm_conv.py each takes (looked up at the call): "kernel" = K1's
+# wrapper (the kernel on a CUDA tensor), "library" = its plain version
+# (shift-and-concatenate + conv2d) on any device
+SHIFT_CONV_ROUTES = {"kernel": "tsm_conv", "library": "tsm_conv_plain"}
 
 # ring-buffer depths: buffered convs between push and pop inside a DenBlock
 _SKIP3_DEPTH = 4   # downc1 (2) + upc2 (2)
@@ -182,6 +191,16 @@ def init_stream_state(
     }
 
 
+def init_chunk_state(
+    n: int, h: int, w: int, cfg: BSVDConfig = BSVD_32,
+    dtype: torch.dtype = torch.float32, device: str | torch.device = "cpu",
+) -> dict:
+    """Fresh carry for chunk_step (the JAX package's name for it): the
+    same zero state as init_stream_state, whose skip buffers chunk_step
+    runs as FIFOs."""
+    return init_stream_state(n, h, w, cfg, dtype, device)
+
+
 def state_from_jax(np_state: dict, device: str | torch.device = "cpu") -> dict:
     """A JAX stream state (leaves as numpy arrays) as the port's state;
     buffer order (FIFO or warm ring) is kept as it is."""
@@ -228,13 +247,14 @@ def _window_mask(x: torch.Tensor, first_idx: int, t_end: int | None) -> torch.Te
     return x
 
 
-def _shift_conv_chunk(p: dict, st: dict, x: torch.Tensor, act: str):
+def _shift_conv_chunk(p: dict, st: dict, x: torch.Tensor, act: str, conv=None):
     """One temporal-shift conv over a chunk x (T, N, H, W, C) with carry
     st = {'left': x_{a-2}[..., fold:2fold], 'center': x_{a-1}}: output j
-    is aligned to frame a-1+j.  Returns (y, new carry)."""
+    is aligned to frame a-1+j.  `conv` is K1's wrapper or its plain
+    version.  Returns (y, new carry)."""
     t = x.shape[0]
     fold = x.shape[-1] // 8
-    y = tsm.tsm_conv(x, st["center"], st["left"], p["w"], p.get("b"), act=act)
+    y = (conv or tsm.tsm_conv)(x, st["center"], st["left"], p["w"], p.get("b"), act=act)
     new_left = x[-2, ..., fold : 2 * fold] if t >= 2 else st["center"][..., fold : 2 * fold]
     return y, {"left": new_left.contiguous(), "center": x[-1]}
 
@@ -251,19 +271,20 @@ def _pair_chunk(p, st, x, act):
     return y2, {"c1": new_c1, "c2": new_c2}
 
 
-def _mem_chunk(p, st, x, act, first_idx, t_end, warm, tsm_pair=False):
-    """A mem block's two shift convs; cold and flush chunks zero the
-    conv inputs outside each conv's frame window (warm chunks skip it).
-    tsm_pair runs a warm chunk of T >= 2 frames through K2; cold and
-    flush chunks keep K1, since a window mask lies between their convs."""
+def _mem_chunk(p, st, x, act, first_idx, t_end, warm, tsm_pair, conv):
+    """A mem block's two shift convs through `conv`; cold and flush
+    chunks zero the conv inputs outside each conv's frame window (warm
+    chunks skip it).  tsm_pair runs a warm chunk of T >= 2 frames through
+    K2; cold and flush chunks keep K1, since a window mask lies between
+    their convs."""
     if warm and tsm_pair and x.shape[0] >= 2:
         return _pair_chunk(p, st, x, act)
     if not warm:
         x = _window_mask(x, first_idx, t_end)
-    y, s1 = _shift_conv_chunk(p["c1"], st["c1"], x, act)
+    y, s1 = _shift_conv_chunk(p["c1"], st["c1"], x, act, conv)
     if not warm:
         y = _window_mask(y, first_idx - 1, t_end)
-    y, s2 = _shift_conv_chunk(p["c2"], st["c2"], y, act)
+    y, s2 = _shift_conv_chunk(p["c2"], st["c2"], y, act, conv)
     return y, {"c1": s1, "c2": s2}
 
 
@@ -334,7 +355,7 @@ def ring_to_fifo_state(state: dict, cfg: BSVDConfig = BSVD_32) -> dict:
     return {**state, "temp1": fix(state["temp1"]), "temp2": fix(state["temp2"])}
 
 
-def _denblock_chunk(p, st, x, act, base, t_end, warm, tsm_pair, inplace):
+def _denblock_chunk(p, st, x, act, base, t_end, warm, tsm_pair, inplace, conv):
     """One DenBlock over a chunk.  x: (T, N, H, W, in_ch) for frames
     [base, base+T); returns output frames [base-8, base+T-8)."""
     rb = base if warm else None  # ring FIFOs on warm steps only
@@ -342,13 +363,13 @@ def _denblock_chunk(p, st, x, act, base, t_end, warm, tsm_pair, inplace):
     x0 = _conv_batched(p["inc1"], _conv_batched(p["inc0"], x, act), act)
     skip2, st_s2, push2 = _fifo(st["skip2"], x0, rb, inplace)
     x1 = _conv_batched(p["down0"], x0, act, stride=2)
-    x1, st_d0 = _mem_chunk(p["down0_mem"], st["down0"], x1, act, base, t_end, warm, tsm_pair)
+    x1, st_d0 = _mem_chunk(p["down0_mem"], st["down0"], x1, act, base, t_end, warm, tsm_pair, conv)
     skip3, st_s3, _ = _fifo(st["skip3"], x1)  # x1 frames [base-2, ...)
     x2 = _conv_batched(p["down1"], x1, act, stride=2)
-    x2, st_d1 = _mem_chunk(p["down1_mem"], st["down1"], x2, act, base - 2, t_end, warm, tsm_pair)
-    u2, st_u2 = _mem_chunk(p["up2_mem"], st["up2"], x2, act, base - 4, t_end, warm, tsm_pair)
+    x2, st_d1 = _mem_chunk(p["down1_mem"], st["down1"], x2, act, base - 2, t_end, warm, tsm_pair, conv)
+    u2, st_u2 = _mem_chunk(p["up2_mem"], st["up2"], x2, act, base - 4, t_end, warm, tsm_pair, conv)
     u2 = _ps_batched(_conv_batched(p["up2"], u2), 2)
-    u1, st_u1 = _mem_chunk(p["up1_mem"], st["up1"], u2 + skip3, act, base - 6, t_end, warm, tsm_pair)
+    u1, st_u1 = _mem_chunk(p["up1_mem"], st["up1"], u2 + skip3, act, base - 6, t_end, warm, tsm_pair, conv)
     u1 = _ps_batched(_conv_batched(p["up1"], u1), 2)
     y = _conv_batched(p["outc1"], _conv_batched(p["outc0"], u1 + skip2, act))
     y = _residual3(y, skip1)
@@ -373,6 +394,7 @@ def chunk_step(
     warm: bool = False,
     tsm_pair: bool = False,
     inplace: bool = False,
+    shift_conv: str = "kernel",
 ) -> tuple[torch.Tensor, dict]:
     """Denoise a chunk of T consecutive frames in one layer-major pass.
 
@@ -400,12 +422,23 @@ def chunk_step(
     D-frame ring: the same outputs and state, bit for bit, but the state
     passed in is consumed, so only its owner (the service, which threads
     one state through its steps) may ask for it.  Cold and flush chunks
-    ignore it."""
+    ignore it.
+
+    shift_conv picks the route of every temporal-shift conv (a key of
+    SHIFT_CONV_ROUTES): "kernel", the default of every serving caller,
+    is K1's wrapper, which launches the kernel on a CUDA tensor (bf16
+    only) or raises; "library" is the shift-and-concatenate + conv2d
+    that training asks for (float32, with a backward; tsm_pair is then
+    ignored)."""
     if warm and t_end is not None:
         raise ValueError("warm chunk_step is live-stream only (t_end=None)")
+    if shift_conv not in SHIFT_CONV_ROUTES:
+        raise ValueError(f"shift_conv must be one of {sorted(SHIFT_CONV_ROUTES)}, got {shift_conv!r}")
+    conv = getattr(tsm, SHIFT_CONV_ROUTES[shift_conv])
+    tsm_pair = tsm_pair and shift_conv == "kernel"
     n0 = state["t"]
     mid, st1 = _denblock_chunk(params["temp1"], state["temp1"], frames, cfg.act, n0, t_end, warm,
-                               tsm_pair, inplace)
+                               tsm_pair, inplace, conv)
     y, st2 = _denblock_chunk(params["temp2"], state["temp2"], mid, cfg.act, n0 - 8, t_end, warm,
-                             tsm_pair, inplace)
+                             tsm_pair, inplace, conv)
     return y, {"t": n0 + frames.shape[0], "temp1": st1, "temp2": st2}

@@ -15,7 +15,8 @@ kernel `csrc/backward_warp.cu` on a CUDA tensor), which writes the
 space-to-depth layout SRNet consumes directly.  The scene-cut skip is
 decided on the device and handed to the kernel as a flag, so a frame
 never waits for the host; FNet then runs on cut frames too and its flow
-goes unused.  The training unroll (`forward_sequence`) is not ported.
+goes unused.  The training unroll (`forward_sequence`) warps instead
+through the plain `ops.warp.backward_warp`, which autograd runs through.
 """
 
 from __future__ import annotations
@@ -26,13 +27,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops import conv2d, leaky_relu, max_pool2, pad2d, pixel_shuffle, resize, upsample_tecogan
-from ..ops.warp import backward_warp_fast
+from ..ops import conv2d, leaky_relu, max_pool2, pad2d, pixel_shuffle, resize, space_to_depth, upsample_tecogan
+from ..ops.warp import backward_warp, backward_warp_fast
 from .torch_import import conv_from_torch, to_tensors
 
 __all__ = [
     "EGVSRConfig", "DEFAULT", "PRODUCTION", "init_params", "fnet_apply", "srnet_apply",
-    "frnet_step", "init_recurrent_state", "infer_step", "infer_chunk", "infer_sequence",
+    "frnet_step", "init_recurrent_state", "infer_step", "infer_chunk", "infer_sequence", "forward_sequence",
     "pad_sequence", "config_from_torch", "from_torch", "from_jax",
 ]
 
@@ -137,16 +138,18 @@ def _fold_conv_out(w: torch.Tensor, b: torch.Tensor, s: int):
 def _fold_tables(kh: int, s: int, device: torch.device):
     """The fold's gather indices and validity mask on `device`, made once:
     a copy from host memory on every step would make the host wait for
-    the device's queue to drain."""
+    the device's queue to drain.  Made outside inference mode, so that
+    autograd may save them (training after inference in one process)."""
     off = kh // 2
     dY = np.arange(-(off // s + 1), off // s + 2)  # LR taps that can hit
     a = np.arange(s)
     grid = a[None, :, None] - a[None, None, :] + s * dY[:, None, None]
     valid = np.abs(grid) <= off                     # (D, a, i)
     idx = np.clip(grid + off, 0, kh - 1)
-    iy = torch.from_numpy(idx[:, :, :, None, None, None]).to(device)
-    ix = torch.from_numpy(idx[None, None, None, :, :, :]).to(device)
-    m = torch.from_numpy(valid[:, :, :, None, None, None] & valid[None, None, None]).to(device)
+    with torch.inference_mode(False):
+        iy = torch.from_numpy(idx[:, :, :, None, None, None]).to(device)
+        ix = torch.from_numpy(idx[None, None, None, :, :, :]).to(device)
+        m = torch.from_numpy(valid[:, :, :, None, None, None] & valid[None, None, None]).to(device)
     return iy, ix, m
 
 
@@ -164,15 +167,21 @@ def srnet_apply(params: dict, lr_curr: torch.Tensor, hr_prev_tran: torch.Tensor)
     return pixel_shuffle(z, 4)
 
 
-def _hr_flow(params: dict, lr_curr: torch.Tensor, lr_prev: torch.Tensor, cfg: EGVSRConfig):
-    """FNet's flow lr_curr -> lr_prev, reflect-padded back to the LR size,
-    upsampled and scaled to HR pixels."""
+def _lr_flow(params: dict, lr_curr: torch.Tensor, lr_prev: torch.Tensor) -> torch.Tensor:
+    """FNet's flow lr_curr -> lr_prev, reflect-padded back to the LR size."""
     h, w = lr_curr.shape[-3], lr_curr.shape[-2]
     flow = fnet_apply(params["fnet"], lr_curr, lr_prev)
     pad_h, pad_w = h - flow.shape[-3], w - flow.shape[-2]
     if pad_h or pad_w:
         flow = pad2d(flow, (0, pad_w, 0, pad_h), mode="reflect")
-    return _upsample_flow(flow, h, w, cfg)
+    return flow
+
+
+def _hr_flow(params: dict, lr_curr: torch.Tensor, lr_prev: torch.Tensor, cfg: EGVSRConfig):
+    """FNet's flow lr_curr -> lr_prev at the LR size, upsampled and scaled
+    to HR pixels."""
+    h, w = lr_curr.shape[-3], lr_curr.shape[-2]
+    return _upsample_flow(_lr_flow(params, lr_curr, lr_prev), h, w, cfg)
 
 
 def _cut_flags(lr_curr: torch.Tensor, lr_prev: torch.Tensor, threshold: float) -> torch.Tensor:
@@ -240,6 +249,35 @@ def infer_sequence(params: dict, lr_data: torch.Tensor, *, cfg: EGVSRConfig = DE
         hr, state = infer_step(params, state, lr, cfg=cfg)
         outs.append(hr)
     return torch.stack(outs)
+
+
+def forward_sequence(params: dict, lr_data: torch.Tensor, *, cfg: EGVSRConfig = DEFAULT) -> dict:
+    """Training unroll (reference forward_sequence, egvsr.py:214-265).
+
+    lr_data: (N, T, H, W, C).  Returns hr_data (N, T, sH, sW, C) and the
+    flow tensors the warping loss reads.  FNet runs once over all T-1
+    frame pairs; the SRNet recurrence loops over the frames, the first
+    with a zero warped hr_prev.  The HR warp is the plain backward_warp,
+    which autograd runs through (K3 has no backward)."""
+    n, t, h, w, c = lr_data.shape
+    s = cfg.scale
+    lr_prev = lr_data[:, :-1].reshape(n * (t - 1), h, w, c)
+    lr_curr = lr_data[:, 1:].reshape(n * (t - 1), h, w, c)
+    lr_flow = _lr_flow(params, lr_curr, lr_prev)
+    hr_flow = _upsample_flow(lr_flow, h, w, cfg).reshape(n, t - 1, h * s, w * s, 2)
+    hr = srnet_apply(params["srnet"], lr_data[:, 0], lr_data.new_zeros((n, h, w, s * s * c)))
+    outs = [hr]
+    for i in range(1, t):
+        hr_warp = backward_warp(hr, hr_flow[:, i - 1])
+        hr = srnet_apply(params["srnet"], lr_data[:, i], space_to_depth(hr_warp, s))
+        outs.append(hr)
+    return {
+        "hr_data": torch.stack(outs, dim=1),
+        "hr_flow": hr_flow,
+        "lr_prev": lr_prev,
+        "lr_curr": lr_curr,
+        "lr_flow": lr_flow,
+    }
 
 
 def infer_chunk(

@@ -56,9 +56,11 @@ def _reflect_pad_hw(x: torch.Tensor, p: int) -> torch.Tensor:
 def _device_kernel(kernel_size: int, sigma: float, c: int, device: torch.device, dtype: torch.dtype):
     """The depthwise gaussian weights (c, 1, k, k) on `device`, made once: a
     copy from host memory on every call would make the host wait for the
-    device's queue to drain."""
-    k = torch.from_numpy(gaussian_kernel_2d(kernel_size, sigma)).to(device, dtype)
-    return k.expand(c, 1, kernel_size, kernel_size).contiguous()
+    device's queue to drain.  Made outside inference mode, so that
+    autograd may save it."""
+    with torch.inference_mode(False):
+        k = torch.from_numpy(gaussian_kernel_2d(kernel_size, sigma)).to(device, dtype)
+        return k.expand(c, 1, kernel_size, kernel_size).contiguous()
 
 
 def blur(x: torch.Tensor, kernel_size: int = 3, sigma: float = 0.5) -> torch.Tensor:

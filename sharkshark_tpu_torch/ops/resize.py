@@ -83,17 +83,21 @@ _TAPS = {"area": _area_taps, "bilinear": _linear_taps, "bicubic": _cubic_taps}
 def _device_taps(method: str, in_size: int, out_size: int, device: torch.device):
     """The tap table of `method` as tensors on `device`, one (index,
     weight) pair per tap, made once: a copy from host memory on every call
-    would make the host wait for the device's queue to drain."""
+    would make the host wait for the device's queue to drain.  Made
+    outside inference mode, so that autograd may save them (a training
+    step after an inference call in one process)."""
     idx, w = _TAPS[method](in_size, out_size)
-    return tuple(
-        (torch.from_numpy(idx[:, k].copy()).to(device), torch.from_numpy(w[:, k].copy()).to(device))
-        for k in range(idx.shape[1])
-    )
+    with torch.inference_mode(False):
+        return tuple(
+            (torch.from_numpy(idx[:, k].copy()).to(device), torch.from_numpy(w[:, k].copy()).to(device))
+            for k in range(idx.shape[1])
+        )
 
 
 @lru_cache(maxsize=None)
 def _device_nearest(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_nearest_index(in_size, out_size)).to(device)
+    with torch.inference_mode(False):  # as _device_taps
+        return torch.from_numpy(_nearest_index(in_size, out_size)).to(device)
 
 
 def _apply_axis(x: torch.Tensor, method: str, out_size: int, axis: int) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: no file of sharkshark_tpu_torch/ and
-not chip_smoke.py imports JAX, anything of the JAX package or of its
-experiments/ (where K4's Pallas kernel lives), and importing the port
-loads none of them."""
+not chip_smoke.py imports JAX (or optax, orbax), anything of the JAX
+package or of its experiments/ (where K4's Pallas kernel lives), and
+importing the port loads none of them."""
 
 import ast
 import subprocess
@@ -12,7 +12,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "sharkshark_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "sharkshark_tpu", "experiments")
+FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "sharkshark_tpu", "experiments")
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -42,6 +42,8 @@ def test_importing_the_port_loads_no_jax():
         "import sharkshark_tpu_torch.models.srvgg, sharkshark_tpu_torch.models.bsvd\n"
         "import sharkshark_tpu_torch.image_server, sharkshark_tpu_torch.stream.youtube\n"
         "import sharkshark_tpu_torch.tools.load_test\n"
+        "import sharkshark_tpu_torch.train, sharkshark_tpu_torch.train.driver\n"
+        "import sharkshark_tpu_torch.tools.make_derived_dataset\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )
