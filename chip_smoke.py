@@ -87,6 +87,24 @@ Phases (any failure exits non-zero, and nothing is caught):
      leaf within 1e-3, or twice its own float32 floor where higher),
      test mode with the minted weights (FRNet's on the card and the CPU,
      launching K3 once a frame), and profile mode;
+ 13. the GAN recipe through the driver (configs/tecogan_bd.yml at its
+     widths: FRNet nf 64 nb 10, the spatio-temporal D, GT crop 128, batch
+     4, T 10 -> 19 frames with ping-pong, BD, the five losses) on phase
+     12's derived set at T 10, with its cuts listed: 30 iterations with a
+     checkpoint every 10, G's and D's losses and the D updates, a resume
+     from the 20th, the step timed alone (median of 10 after 3) under the
+     adaptive policy, 'always' and an adaptive threshold that never skips
+     (the cost of the policy's host read), a resume on the card bit for
+     bit under deterministic algorithms, one step's losses, D decision
+     and both networks' gradients on the card against the CPU (held in
+     float64; float32, TF32 off, reported), and test mode through K3 (one
+     launch a frame) on the card and the CPU, from the run's checkpoint
+     and from the minted FRNet; a short run with the spatial D and the
+     VGG feature loss on a seeded VGG19 (its cost, not its quality), G
+     from the minted FRNet; before these, ESPCN, VESPCN and SOF-VSR at
+     their default configs on a 180x320 LR input, card against CPU and
+     profile mode; after them, the export tools on phase 12's and 13's
+     checkpoints, and quality_eval on the GAN test's frames;
 then one JSON line of kernel numbers, the card's name and power limit,
 and the result line last.  Exits 2 without a result when CUDA is
 unavailable or the script stands outside the repo checkout.
@@ -95,6 +113,7 @@ unavailable or the script stands outside the repo checkout.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import inspect
 import io
 import json
@@ -1533,15 +1552,16 @@ def check_train_step_against_cpu(driver, opt: dict, batch: dict) -> dict:
 TF32_PEAK_FLOPS = 495e12  # H100 SXM dense TF32, NVIDIA's data sheet
 
 
-def time_train_step(driver, opt: dict, batch: dict, warmup: int = 3, iters: int = 10) -> dict:
+def time_train_step(driver, opt: dict, batch: dict, warmup: int = 3, iters: int = 10, recipe=None) -> dict:
     """ms per training iteration on one batch already on the card, each
     iteration synchronised, median after `warmup`; the peak memory of
     those iterations; the step's conv and matmul FLOPs (forward and
     backward, FlopCounterMode) and its bound at the TF32 peak, which
-    cuDNN's convs use at PyTorch's default."""
+    cuDNN's convs use at PyTorch's default.  `recipe`: the config's fresh
+    one unless given."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    recipe = driver.build_training(opt, "cuda")
+    recipe = recipe or driver.build_training(opt, "cuda")
     lr = torch.from_numpy(batch["lr"]).cuda()
     gt = torch.from_numpy(batch["gt"]).cuda()
     state = recipe.state
@@ -1581,25 +1601,30 @@ def deterministic_algorithms():
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = old[1:]
 
 
-def check_resume_on_card(driver, opt: dict, loader, tmp: Path) -> dict:
-    """Four steps straight against two, a checkpoint, a fresh state
-    restored from it and two more, on four of the driver's batches on the
-    card.  With deterministic algorithms the two must agree bit for bit.
-    With PyTorch's defaults cuDNN's weight gradients and the warp's
-    gather backward add in a nondeterministic order, so there the
-    distance between the resumed and a straight run's parameters, over
-    the distance the straight run moved them, is reported beside the
-    same measure between two straight runs."""
-    from sharkshark_tpu_torch.train import checkpoint, vsr
+def state_leaves(state) -> list:
+    """Every parameter tensor of a train state (a TrainState's params; a
+    GAN state's params_g and params_d)."""
+    from sharkshark_tpu_torch.train import vsr
 
-    batches = []
-    while len(batches) < 4:  # the loader may hold fewer than 4 batches an epoch
-        batches += [(torch.from_numpy(b["lr"]).cuda(), torch.from_numpy(b["gt"]).cuda()) for b in loader]
-    batches = batches[:4]
+    return [t for f in dataclasses.fields(state) if isinstance(getattr(state, f.name), dict)
+            for t in vsr.param_leaves(getattr(state, f.name))]
+
+
+def check_resume_on_card(driver, opt: dict, batches: list, tmp: Path) -> dict:
+    """Four steps straight against two, a checkpoint, a fresh state
+    restored from it and two more, on four of the driver's (lr, gt)
+    batches on the card, every parameter of the state compared (both
+    networks' for the GAN).  With deterministic algorithms the two must
+    agree bit for bit.  With PyTorch's defaults cuDNN's weight gradients
+    and the warp's gather backward add in a nondeterministic order, so
+    there the distance between the resumed and a straight run's
+    parameters, over the distance the straight run moved them, is
+    reported beside the same measure between two straight runs."""
+    from sharkshark_tpu_torch.train import checkpoint
 
     def params(steps: int, resume_at: int | None = None):
         recipe = driver.build_training(opt, "cuda")
-        init = torch.cat([t.detach().flatten() for t in vsr.param_leaves(recipe.state.params)])
+        init = torch.cat([t.detach().flatten() for t in state_leaves(recipe.state)])
         state = recipe.state
         for i, (lr, gt) in enumerate(batches[:steps]):
             if i == resume_at:
@@ -1607,7 +1632,7 @@ def check_resume_on_card(driver, opt: dict, loader, tmp: Path) -> dict:
                 state = checkpoint.load_checkpoint(path, driver.build_training(opt, "cuda").state)
             state, _ = recipe.step(state, lr, gt)
         assert state.step == steps
-        return init, torch.cat([t.detach().flatten() for t in vsr.param_leaves(state.params)])
+        return init, torch.cat([t.detach().flatten() for t in state_leaves(state)])
 
     def rel(a, b, init):
         return float((a - b).norm() / (b - init).norm())
@@ -1622,6 +1647,19 @@ def check_resume_on_card(driver, opt: dict, loader, tmp: Path) -> dict:
         _, resumed = params(4, resume_at=2)
     res["deterministic_bit_identical"] = bool(torch.equal(resumed, straight))
     return res
+
+
+def loader_batches(driver, opt: dict, n: int = 4) -> list:
+    """The first n of the driver's training batches as (lr, gt) on the
+    card, BD-degraded there where the config says so."""
+    degrade = driver.make_degrade(opt, "cuda")
+    batches = []
+    while len(batches) < n:  # the loader may hold fewer than n batches an epoch
+        for b in driver.train_loader(opt):
+            gt = torch.from_numpy(b["gt"]).cuda()
+            d = degrade(gt) if degrade else {"lr": torch.from_numpy(b["lr"]).cuda(), "gt": gt}
+            batches.append((d["lr"], d["gt"]))
+    return batches[:n]
 
 
 def run_training_recipe(driver, counters, name: str, data: dict, tmp: Path, card: str) -> dict:
@@ -1662,7 +1700,7 @@ def run_training_recipe(driver, counters, name: str, data: dict, tmp: Path, card
         loader = driver.train_loader(opt)
         batch = next(iter(loader))
         res["timing"] = time_train_step(driver, opt, batch)
-        res["resume"] = check_resume_on_card(driver, opt, loader, tmp / name)
+        res["resume"] = check_resume_on_card(driver, opt, loader_batches(driver, opt), tmp / name)
         assert res["resume"]["deterministic_bit_identical"], res["resume"]
     with cudnn_tf32(False):
         res["card_vs_cpu"] = check_train_step_against_cpu(driver, opt, batch)
@@ -1713,21 +1751,418 @@ def _png(path: Path):
     return Image.open(path).convert("RGB")
 
 
-def run_training_phase(counters, card: str) -> dict:
+def run_training_phase(counters, card: str, tmp: Path) -> dict:
     """Phase 12: the FRNet, SRVGG and BSVD recipes through the training
-    driver on the card, at their configs' widths."""
+    driver on the card, at their configs' widths, in `tmp`."""
     from sharkshark_tpu_torch.train import driver
 
     t_phase = time.perf_counter()
     res = {}
-    build = ROOT / "sharkshark_tpu_torch" / "build"
-    build.mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=build) as tmp:
+    t0 = time.perf_counter()
+    data = write_training_data(tmp)
+    res["data_s"] = time.perf_counter() - t0
+    for name in TRAIN_RECIPES:
+        res[name] = run_training_recipe(driver, counters, name, data, tmp, card)
+    res["wall_s"] = time.perf_counter() - t_phase
+    return res
+
+
+# -------------------------------------------------------------- phase 13
+
+GAN_ITERS, GAN_CKPT_FREQ, GAN_TEMPO = 30, 10, 10
+GAN_CUTS = [
+    f"{GAN_ITERS} iterations, against the config's 500000",
+    f"a checkpoint every {GAN_CKPT_FREQ}, against 5000",
+    "a Folder dataset (phase 12's derived set at T 10: 12 sequences from five seeded 640x640 stills) in place of "
+    "VimeoTecoGAN LMDB and Vid4: neither is in the repository, and lmdb is absent on the card machine",
+]
+# the variants at their default configs (the reference's Y-channel models)
+VARIANT_LR = (180, 320)
+
+
+def write_gan_data(tmp: Path) -> Path:
+    """Phase 12's derived set (from its stills) at T = 10: 12 panned
+    sequences of 256-px GT crops and a 10-frame val sequence."""
+    from sharkshark_tpu_torch.tools import make_derived_dataset as mdd
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        mdd.main(["--src", str(tmp / "stills"), "--holdout", "still_000.png", "--seqs", "12", "--crop", "256",
+                  "--scale", "4", "--out", str(tmp / "derived_t10"), "--tempo", str(GAN_TEMPO),
+                  "--val-tempo", str(GAN_TEMPO)])
+    return tmp / "derived_t10"
+
+
+def gan_config(driver, data: Path, tmp: Path, name: str = "gan") -> dict:
+    """configs/tecogan_bd.yml as committed (FRNet nf 64 / nb 10, the
+    spatio-temporal D, GT crop 128, batch 4, T 10, BD sigma 1.5, the five
+    losses, rates 5e-5), with GAN_CUTS."""
+    opt = driver.load_config(str(ROOT / "configs" / "tecogan_bd.yml"))
+    opt["dataset"]["train"].update(name="Folder", gt_seq_dir=str(data / "train" / "GT"),
+                                   lr_seq_dir=str(data / "train" / "LR"))
+    opt["dataset"]["test1"].update(name="Folder", gt_seq_dir=str(data / "val" / "GT"),
+                                   lr_seq_dir=str(data / "val" / "LR"))
+    opt["train"].update(total_iter=GAN_ITERS, ckpt_freq=GAN_CKPT_FREQ, ckpt_dir=str(tmp / f"ckpt_{name}"))
+    opt["logger"]["log_freq"] = GAN_CKPT_FREQ
+    opt["test"].update(test_freq=0, json_dir=str(tmp / f"json_{name}"))
+    return opt
+
+
+def gan_grads(driver, opt: dict, lr: torch.Tensor, gt: torch.Tensor, dev: str, dtype) -> dict:
+    """The GAN step's D loss and G loss with every gradient leaf (D's
+    unused biases left out), its logs and its D decision, on `dev` in
+    `dtype`, from the config's seeded weights."""
+    from sharkshark_tpu_torch.train import vsr
+
+    def cast(tree):
+        if isinstance(tree, dict):
+            return {k: cast(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [cast(v) for v in tree]
+        return tree.detach().to(dtype).requires_grad_(True)
+
+    recipe = driver.build_training(opt, dev)
+    pg, pd, losses = cast(recipe.state.params_g), cast(recipe.state.params_d), recipe.loss_fn
+    ctx = losses.prepare(pg, lr.to(dev, dtype), gt.to(dev, dtype))
+    loss_d, aux = losses.d_loss(pd, ctx)
+    g_d = torch.autograd.grad(loss_d, vsr.param_leaves(pd), allow_unused=True)
+    loss_g, logs = losses.g_loss(pg, pd, ctx, aux)
+    g_g = torch.autograd.grad(loss_g, vsr.param_leaves(pg), allow_unused=True)
+    names = [f"D{n}" for n, g in zip(leaf_names(pd), g_d) if g is not None] + [f"G{n}" for n in leaf_names(pg)]
+    return {"loss_d": float(loss_d.detach()), "logs": {k: float(v.detach()) for k, v in logs.items()},
+            "upd_d": bool(aux["distance"] < recipe.cfg.update_threshold), "distance": float(aux["distance"]),
+            "grads_d": [g for g in g_d if g is not None], "grads_g": list(g_g), "names": names}
+
+
+def check_gan_step_against_cpu(driver, opt: dict, lr: torch.Tensor, gt: torch.Tensor) -> dict:
+    """One GAN step's every loss, the D decision and both networks' whole
+    gradient and leaves, on the card (TF32 off) against the CPU, from the
+    same seeded weights on the first sample of the driver's first
+    (degraded) batch.  Held in float64 (losses within 1e-6, every leaf
+    within 1e-5, the same D decision): the seeded FRNet's 19-frame
+    recurrence grows its output by orders of magnitude a frame, so in
+    float32 the CPU itself lies far from float64 (its "floor", reported
+    beside the card's float32 leaves, which are reported, not held)."""
+    lr, gt = lr[:1], gt[:1]
+    runs = {(d, t): gan_grads(driver, opt, lr, gt, d, t) for d in ("cpu", "cuda") for t in (torch.float64,
+                                                                                           torch.float32)}
+    ref, card = runs["cpu", torch.float64], runs["cuda", torch.float64]
+
+    def leaves(r):
+        return r["grads_d"] + r["grads_g"]
+
+    def whole(a, b):
+        fa, fb = (torch.cat([g.detach().cpu().double().flatten() for g in x]) for x in (a, b))
+        return float((fa - fb).norm() / fb.norm())
+
+    def loss_errs(a, b):
+        errs = {k: abs(a["logs"][k] - v) / max(abs(v), 1e-30) for k, v in b["logs"].items()}
+        errs["l_D"] = abs(a["loss_d"] - b["loss_d"]) / abs(b["loss_d"])
+        return errs
+
+    rel64 = leaf_rel_errs(leaves(card), leaves(ref))
+    rel32 = leaf_rel_errs(leaves(runs["cuda", torch.float32]), leaves(runs["cpu", torch.float32]))
+    floor32 = leaf_rel_errs(leaves(runs["cpu", torch.float32]), leaves(ref))
+    names = ref["names"]
+    worst = sorted(range(len(rel32)), key=lambda i: -rel32[i])[:3]
+    return {"losses_cpu": {"l_D": ref["loss_d"], **ref["logs"]}, "upd_d": {f"{d} {str(t)[6:]}": r["upd_d"]
+                                                                          for (d, t), r in runs.items()},
+            "float64": {"loss_rel_err_max": max(loss_errs(card, ref).values()), "grad_rel_err_max": max(rel64),
+                        "grad_rel_err_d": whole(card["grads_d"], ref["grads_d"]),
+                        "grad_rel_err_g": whole(card["grads_g"], ref["grads_g"]), "grad_leaves": len(rel64)},
+            "float32": {"loss_rel_errs": loss_errs(runs["cuda", torch.float32], runs["cpu", torch.float32]),
+                        "grad_rel_err_d": whole(runs["cuda", torch.float32]["grads_d"],
+                                                runs["cpu", torch.float32]["grads_d"]),
+                        "grad_rel_err_g": whole(runs["cuda", torch.float32]["grads_g"],
+                                                runs["cpu", torch.float32]["grads_g"]),
+                        "grad_rel_err_max": max(rel32), "cpu_floor_max": max(floor32),
+                        "worst_leaves": [[names[i], rel32[i], floor32[i]] for i in worst]}}
+
+
+def write_vgg19(path: Path, seed: int = 13) -> None:
+    """A torchvision vgg19 `features` state dict with seeded He weights."""
+    from sharkshark_tpu_torch.train.vgg import VGG19_LAYERS
+
+    g = torch.Generator().manual_seed(seed)
+    sd, cin = {}, 3
+    for entry in VGG19_LAYERS:
+        if entry == "M":
+            continue
+        i, cout = entry
+        sd[f"features.{i}.weight"] = torch.randn((cout, cin, 3, 3), generator=g) * (2.0 / (cin * 9)) ** 0.5
+        sd[f"features.{i}.bias"] = torch.zeros(cout)
+        cin = cout
+    torch.save(sd, path)
+
+
+def run_gan_recipe(driver, counters, data: Path, tmp: Path, card: str) -> dict:
+    """The GAN recipe (configs/tecogan_bd.yml) through the driver on the
+    card: train 30 iterations (checkpoints at 10, 20, 30) and resume from
+    the 20th; the step timed alone under the config's adaptive policy, and
+    under 'always' and an adaptive threshold no distance reaches (the
+    cost of its one host read a step); one step held against the CPU; the
+    resume on the card; test mode from the run's checkpoint through K3,
+    on the card and the CPU."""
+    res = {"cuts": GAN_CUTS}
+    opt = gan_config(driver, data, tmp)
+    cfg_path = write_config(opt, tmp / "gan.yml")
+    with cudnn_tf32(True):
+        counters.reset()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        data = write_training_data(Path(tmp))
-        res["data_s"] = time.perf_counter() - t0
-        for name in TRAIN_RECIPES:
-            res[name] = run_training_recipe(driver, counters, name, data, Path(tmp), card)
+        run = driver.main(["--config", cfg_path, "--mode", "train"])
+        res["train_wall_s"] = time.perf_counter() - t0
+        res["train_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        res["train_launches"] = counters.read()
+        k = GAN_CKPT_FREQ
+        g_losses, d_losses = run["logs"]["l_total_G"], run["logs"]["l_gan_D"]
+        assert run["iter"] == GAN_ITERS and len(g_losses) == GAN_ITERS, run["iter"]
+        assert all(np.isfinite(g_losses)) and all(np.isfinite(d_losses)), (g_losses, d_losses)
+        res.update(cnt_upd_d=run["cnt_upd_d"], loss_g_first10=float(np.mean(g_losses[:k])),
+                   loss_g_last10=float(np.mean(g_losses[-k:])), loss_d_first10=float(np.mean(d_losses[:k])),
+                   loss_d_last10=float(np.mean(d_losses[-k:])), logs=run["logs"])
+        assert res["loss_g_last10"] < res["loss_g_first10"], res
+        assert sum(v != 0.0 for v in d_losses) == run["cnt_upd_d"]
+        want = [f"ckpt_{i:09d}" for i in range(k, GAN_ITERS + 1, k)]
+        assert [Path(p).name for p in run["checkpoints"]] == want, run["checkpoints"]
+        # training runs no kernel: the warps are the plain gather (K3 has no backward)
+        assert not any(res["train_launches"].values()), res["train_launches"]
+        os.remove(run["checkpoints"][-1])
+        rerun = driver.main(["--config", cfg_path, "--mode", "train"])
+        assert Path(rerun["resumed_from"]).name == want[-2], rerun["resumed_from"]
+        assert rerun["iter"] == GAN_ITERS and len(rerun["losses"]) == k and all(np.isfinite(rerun["losses"]))
+        res["resumed_losses"] = rerun["losses"]
+        batches = loader_batches(driver, opt)
+        batch = {"lr": batches[0][0].cpu().numpy(), "gt": batches[0][1].cpu().numpy()}
+        res["timing"] = time_train_step(driver, opt, batch)
+        for label, policy in (("always", {"update_policy": "always"}),
+                              ("adaptive_never_skips", {"update_threshold": 1e9})):
+            popt = {**opt, "train": {**opt["train"], "discriminator": {**opt["train"]["discriminator"], **policy}}}
+            res[f"timing_{label}"] = time_train_step(driver, popt, batch)
+        res["host_read_ms"] = res["timing_adaptive_never_skips"]["ms_per_iter"] - res["timing_always"]["ms_per_iter"]
+        res["resume"] = check_resume_on_card(driver, opt, batches, tmp / "gan")
+        assert res["resume"]["deterministic_bit_identical"], res["resume"]
+    with cudnn_tf32(False):
+        res["card_vs_cpu"] = cmp = check_gan_step_against_cpu(driver, opt, batches[0][0], batches[0][1])
+        f64 = cmp["float64"]
+        assert f64["loss_rel_err_max"] <= 1e-6 and f64["grad_rel_err_max"] <= 1e-5, cmp
+        assert cmp["upd_d"]["cuda float64"] == cmp["upd_d"]["cpu float64"], cmp
+        # test mode from the run's checkpoint: FRNet's inference, K3 once a
+        # frame.  Its seeded generator's recurrence diverges, and carries
+        # float32 differences from frame to frame, so its frames are
+        # reported and the sequence's PSNR held; the frames are held on
+        # the minted FRNet (a trained, stable recurrence) in the same config
+        res["test"] = run_gan_test(driver, counters, opt, opt["train"]["ckpt_dir"], tmp / "res_gan")
+        assert abs(res["test"]["psnr_card"] - res["test"]["psnr_cpu"]) <= 0.05, res["test"]
+        res["test_minted"] = run_gan_test(driver, counters, opt, str(MINTED / "egvsr-derived-x4.pth"),
+                                          tmp / "res_gan_minted")
+        assert abs(res["test_minted"]["psnr_card"] - res["test_minted"]["psnr_cpu"]) <= 0.05, res["test_minted"]
+        assert min(res["test_minted"]["frame_psnr_card_vs_cpu_db"]) >= 45.0, res["test_minted"]
+    t = res["timing"]
+    log(f"GAN training (configs/tecogan_bd.yml, FRNet nf 64 nb 10 + spatio-temporal D, crop 128, batch 4, T "
+        f"{GAN_TEMPO} -> {2 * GAN_TEMPO - 1} with ping-pong) on {card}; cuts: {'; '.join(GAN_CUTS)}: "
+        f"{GAN_ITERS} iterations in {res['train_wall_s']:.3f} s, peak {res['train_peak_gb']:.3f} GB, D updated "
+        f"{res['cnt_upd_d']} of {GAN_ITERS}; G loss {res['loss_g_first10']:.1f} -> {res['loss_g_last10']:.1f}, D loss "
+        f"{res['loss_d_first10']:.4f} -> {res['loss_d_last10']:.4f} (mean of the first / last {k}); step "
+        f"{t['ms_per_iter']:.3f} ms (median of 10 after 3, {t['ms_min']:.3f}-{t['ms_max']:.3f}, peak "
+        f"{t['peak_gb']:.3f} GB, {t['gflop']:.3f} GFLOP, bound {t['bound_ms_tf32']:.3f} ms at the TF32 peak); "
+        f"'always' {res['timing_always']['ms_per_iter']:.3f} ms, adaptive that never skips "
+        f"{res['timing_adaptive_never_skips']['ms_per_iter']:.3f} ms (the host read: {res['host_read_ms']:.3f} ms); "
+        f"resume on the card {res['resume']}; card vs CPU (one sample), float64: losses "
+        f"{cmp['float64']['loss_rel_err_max']:.2e}, grads D {cmp['float64']['grad_rel_err_d']:.2e} G "
+        f"{cmp['float64']['grad_rel_err_g']:.2e} (whole), {cmp['float64']['grad_rel_err_max']:.2e} (max of "
+        f"{cmp['float64']['grad_leaves']} leaves); float32: grads D {cmp['float32']['grad_rel_err_d']:.2e} G "
+        f"{cmp['float32']['grad_rel_err_g']:.2e}, the worst [leaf, card vs CPU, CPU float32 vs float64]: "
+        f"{cmp['float32']['worst_leaves']}; D decision {cmp['upd_d']}; test through K3 from the run's "
+        f"checkpoint: {res['test']['launches']['backward_warp']} launches, {res['test']['ms_per_frame']:.3f} ms a "
+        f"frame, PSNR {res['test']['psnr_card']:.4f} dB (CPU {res['test']['psnr_cpu']:.4f}), frames against the "
+        f"CPU's {[round(v, 2) for v in res['test']['frame_psnr_card_vs_cpu_db']]} dB; from the minted FRNet: "
+        f"PSNR {res['test_minted']['psnr_card']:.4f} dB (CPU {res['test_minted']['psnr_cpu']:.4f}), frames "
+        f"{min(res['test_minted']['frame_psnr_card_vs_cpu_db']):.2f}-"
+        f"{max(res['test_minted']['frame_psnr_card_vs_cpu_db']):.2f} dB against the CPU's, "
+        f"{res['test_minted']['ms_per_frame']:.3f} ms a frame")
+    return res
+
+
+def run_gan_test(driver, counters, opt: dict, load_path: str, res_dir: Path) -> dict:
+    """The GAN config's test mode with generator weights from `load_path`
+    on the card (through main, K3 once a frame, nothing else launched) and
+    on the CPU; each frame's PSNR card against CPU."""
+    topt = {**opt, "model": {**opt["model"], "generator": {**opt["model"]["generator"], "load_path": load_path}}}
+    topt["test"] = {**opt["test"], "res_dir": str(res_dir / "card")}
+    test_path = write_config(topt, res_dir.parent / f"{res_dir.name}.yml")
+    counters.reset()
+    t0 = time.perf_counter()
+    card_res = driver.main(["--config", test_path, "--mode", "test"])["test1"]
+    wall = time.perf_counter() - t0
+    launches = counters.read()
+    frames = sorted((res_dir / "card").rglob("*.png"))
+    assert launches == {"tsm_conv": 0, "tsm_conv_pair": 0, "backward_warp": len(frames),
+                        "fused_conv_stack": 0} and len(frames) == GAN_TEMPO, (launches, len(frames))
+    topt["test"]["res_dir"] = str(res_dir / "cpu")
+    psnr_cpu = driver.test(topt, device="cpu")["test1"]["PSNR"]
+    frame_db = [psnr(np.asarray(_png(f)), np.asarray(_png(res_dir / "cpu" / f.relative_to(res_dir / "card"))))
+                for f in frames]
+    return {"load_path": load_path, "launches": launches, "frames": len(frames),
+            "ms_per_frame": wall * 1e3 / len(frames), "psnr_card": card_res["PSNR"], "psnr_cpu": psnr_cpu,
+            "frame_psnr_card_vs_cpu_db": frame_db}
+
+
+def minted_gan_recipe(driver, opt: dict):
+    """The config's GAN recipe on the card with its generator started from
+    the minted FRNet (weights/minted/egvsr-derived-x4.pth, nf 64 nb 10):
+    a trained, stable recurrence, as TecoGAN fine-tunes a pretrained one.
+    (The seeded FRNet's 19-frame recurrence grows its output ~7x a frame,
+    to ~1e16, where VGG19's features overflow float32.)"""
+    from sharkshark_tpu_torch.models import egvsr
+    from sharkshark_tpu_torch.models.torch_import import load_state_dict
+    from sharkshark_tpu_torch.train import vsr
+
+    recipe = driver.build_training(opt, "cuda")
+    minted = egvsr.from_torch(load_state_dict(str(MINTED / "egvsr-derived-x4.pth")), recipe.cfg.model_cfg)
+    with torch.no_grad():
+        for dst, src in zip(vsr.param_leaves(recipe.state.params_g), vsr.param_leaves(minted)):
+            dst.copy_(src)
+    return recipe
+
+
+def run_gan_snet_vgg(driver, data: Path, tmp: Path, card: str, iters: int = 6) -> dict:
+    """A short GAN run with the spatial D (SNet, conditional) and the VGG
+    feature loss on a seeded VGG19 written to `tmp`, its generator started
+    from the minted FRNet: `iters` steps on the driver's batches, then its
+    step against the same step without the feature loss.  Random VGG
+    weights: this gives the perceptual loss's cost, not its quality."""
+    write_vgg19(tmp / "vgg19.pth")
+    opt = gan_config(driver, data, tmp, name="gan_snet")
+    opt["model"]["discriminator"].update(name="SNet", use_cond=True)
+    plain = {**opt, "train": dict(opt["train"])}
+    opt["train"]["feature_crit"] = {"type": "CB", "weight": 0.2, "vgg_weights": str(tmp / "vgg19.pth")}
+    res = {}
+    with cudnn_tf32(True):
+        recipe = minted_gan_recipe(driver, opt)
+        assert recipe.cfg.disc_type == "spatial" and recipe.cfg.disc_cfg.use_cond
+        batches = loader_batches(driver, opt, iters)
+        t0 = time.perf_counter()
+        logs = [recipe.step(recipe.state, lr, gt)[1] for lr, gt in batches]
+        res["train_wall_s"] = time.perf_counter() - t0
+        res["l_feat_G"] = [float(x["l_feat_G"]) for x in logs]
+        res["l_total_G"] = [float(x["l_total_G"]) for x in logs]
+        res["cnt_upd_d"] = recipe.state.cnt_upd_d
+        assert all(np.isfinite(res["l_feat_G"] + res["l_total_G"])), res
+        batch = {"lr": batches[0][0].cpu().numpy(), "gt": batches[0][1].cpu().numpy()}
+        res["timing_vgg"] = time_train_step(driver, opt, batch, warmup=2, iters=5,
+                                            recipe=minted_gan_recipe(driver, opt))
+        res["timing_no_vgg"] = time_train_step(driver, plain, batch, warmup=2, iters=5,
+                                               recipe=minted_gan_recipe(driver, plain))
+    res["vgg_cost_ms"] = res["timing_vgg"]["ms_per_iter"] - res["timing_no_vgg"]["ms_per_iter"]
+    log(f"GAN, spatial D (conditional) + VGG19 feature loss on seeded weights (its cost, not its quality), G from "
+        f"the minted FRNet, on {card}: {iters} steps in {res['train_wall_s']:.3f} s, D updated {res['cnt_upd_d']}, "
+        f"l_feat_G {res['l_feat_G'][0]:.4f} -> {res['l_feat_G'][-1]:.4f}, l_total_G {res['l_total_G'][0]:.1f} -> "
+        f"{res['l_total_G'][-1]:.1f}; step {res['timing_vgg']['ms_per_iter']:.3f} ms with the VGG loss, "
+        f"{res['timing_no_vgg']['ms_per_iter']:.3f} without ({res['vgg_cost_ms']:.3f} ms; "
+        f"{res['timing_vgg']['gflop']:.1f} / {res['timing_no_vgg']['gflop']:.1f} GFLOP; median of 5 after 2), peak "
+        f"{res['timing_vgg']['peak_gb']:.3f} GB")
+    return res
+
+
+def check_variants(driver, tmp: Path, card: str) -> dict:
+    """ESPCN, VESPCN and SOF-VSR at their default (Y-channel) configs with
+    seeded weights on a 180x320 LR input (720p / 4) from three panning
+    frames, float32: the card (TF32 off) against the CPU by PSNR over the
+    CPU output's peak (>= 55 dB, the CPU output's std >= 0.05), ms a call
+    on the card; then the driver's profile mode at the same size."""
+    from sharkshark_tpu_torch.models import variants as V
+    from sharkshark_tpu_torch.models.torch_import import to_tensors
+
+    h, w = VARIANT_LR
+    rgb = make_frames(3, h, w, seed=13).astype(np.float32) / 255.0
+    y = torch.from_numpy(rgb @ np.array([0.299, 0.587, 0.114], np.float32))[..., None]  # (3, h, w, 1)
+    cases = {
+        "espnet": (V.espcn_init, V.espcn_apply, V.ESPCNConfig(), y[1:2], {}),
+        "vespnet": (V.vespcn_init, V.vespcn_apply, V.VESPCNConfig(), y, {"channel": 1}),
+        "sofnet": (V.sofvsr_init, V.sofvsr_apply, V.SOFVSRConfig(), y[..., 0].permute(1, 2, 0)[None], {}),
+    }
+    res = {}
+    for name, (init, apply, cfg, x, gen_opt) in cases.items():
+        params = init(torch.Generator().manual_seed(13), cfg)
+        with torch.no_grad(), cudnn_tf32(False):
+            want = apply(params, x, cfg=cfg)
+            pc, xc = to_tensors(params, "cuda"), x.cuda()
+            got = apply(pc, xc, cfg=cfg).cpu()
+            want64 = apply(to_tensors(params, "cpu", torch.float64), x.double(), cfg=cfg)
+            got64 = apply(to_tensors(params, "cuda", torch.float64), xc.double(), cfg=cfg).cpu()
+            times = []
+            for i in range(12):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                apply(pc, xc, cfg=cfg)
+                torch.cuda.synchronize()
+                if i >= 2:
+                    times.append((time.perf_counter() - t0) * 1e3)
+        peak = float(want.abs().max())
+
+        def db(a, b):
+            mse = float(((a.double() - b.double()) ** 2).mean())
+            return float("inf") if mse == 0 else float(10 * np.log10(peak**2 / mse))
+
+        r = {"shape": list(want.shape), "std_cpu": float(want.std()), "peak_cpu": peak,
+             "psnr_card_vs_cpu_db": db(got, want), "psnr_card_vs_cpu_float64_db": db(got64, want64),
+             "psnr_cpu_float32_vs_float64_db": db(want, want64),
+             "max_abs_err": float((got - want).abs().max()), "ms_card": statistics.median(times)}
+        assert r["psnr_card_vs_cpu_db"] >= 55.0 and r["std_cpu"] >= 0.05, (name, r)
+        popt = {"scale": 4, "model": {"generator": {"name": name, "in_nc": 1, "out_nc": 1, **gen_opt}},
+                "test": {"profile_size": [h, w]}}
+        with cudnn_tf32(True):
+            prof = driver.main(["--config", write_config(popt, tmp / f"{name}.yml"), "--mode", "profile"])
+        r.update(profile_gflop=prof["flops"] / 1e9, profile_calls_per_s=prof["fps"], params=prof["params"])
+        res[name] = r
+        log(f"variant {name} at {h}x{w} -> {want.shape[1]}x{want.shape[2]} on {card}: card vs CPU "
+            f"{r['psnr_card_vs_cpu_db']:.2f} dB (peak {peak:.3f}, CPU std {r['std_cpu']:.4f}; in float64 "
+            f"{r['psnr_card_vs_cpu_float64_db']:.2f} dB; the CPU's float32 vs its float64 "
+            f"{r['psnr_cpu_float32_vs_float64_db']:.2f} dB), {r['ms_card']:.3f} ms a "
+            f"call (median of 10); profile {r['profile_gflop']:.3f} GFLOP, {r['profile_calls_per_s']:.2f} calls/s, "
+            f"{r['params']} params")
+    return res
+
+
+def run_tools(tmp: Path, data: Path, gan_test: dict, card: str) -> dict:
+    """export_torch_{egvsr,srvgg,bsvd} on phase 12's and this phase's
+    checkpoints (each reads its file back through from_torch), and
+    quality_eval on the GAN test's frames, its PSNR against test mode's."""
+    from sharkshark_tpu_torch.tools import export_torch_bsvd, export_torch_egvsr, export_torch_srvgg, quality_eval
+
+    out = tmp / "exports"
+    res = {"exports": {
+        "egvsr (phase 12, FRNet)": export_torch_egvsr.main(
+            ["--ckpt", str(tmp / "ckpt_frnet"), "--out", str(out / "egvsr-frnet.pth"), "--nb", "10"]),
+        "egvsr (phase 13, the GAN's G)": export_torch_egvsr.main(
+            ["--ckpt", str(tmp / "ckpt_gan"), "--out", str(out / "egvsr-gan.pth"), "--nb", "10",
+             "--degradation", "BD"]),
+        "srvgg (phase 12)": export_torch_srvgg.main(
+            ["--ckpt", str(tmp / "ckpt_srvgg"), "--out", str(out / "srvgg.pth"), "--num-conv", "32"]),
+        "bsvd (phase 12)": export_torch_bsvd.main(
+            ["--ckpt", str(tmp / "ckpt_bsvd"), "--out", str(out / "bsvd.pth")]),
+    }}
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        q = quality_eval.main(["--gt", str(data / "val" / "GT"), "--pred", str(tmp / "res_gan" / "card" / "test1"),
+                               "--metrics", "PSNR", "tOF", "LPIPS", "--json", str(tmp / "quality.json")])
+    res["quality_eval"] = {**q["average"], "wall_s": time.perf_counter() - t0}
+    assert abs(q["average"]["PSNR"] - gan_test["psnr_card"]) <= 1e-6, (q, gan_test)
+    log(f"tools on {card}: {json.dumps(res)}")
+    return res
+
+
+def run_gan_phase(counters, card: str, tmp: Path) -> dict:
+    """Phase 13: the GAN recipe, a spatial-D + VGG run, the variants and
+    the tools, in phase 12's `tmp` (its stills and checkpoints)."""
+    from sharkshark_tpu_torch.train import driver
+
+    t_phase = time.perf_counter()
+    res = {"variants": check_variants(driver, tmp, card)}
+    data = write_gan_data(tmp)
+    res["gan"] = run_gan_recipe(driver, counters, data, tmp, card)
+    res["gan_snet_vgg"] = run_gan_snet_vgg(driver, data, tmp, card)
+    res["tools"] = run_tools(tmp, data, res["gan"]["test"], card)
     res["wall_s"] = time.perf_counter() - t_phase
     return res
 
@@ -1856,10 +2291,19 @@ def main() -> int:
     log(f"phase 11 took {image_res['wall_s']:.1f} s")
     log(json.dumps({"image_service": image_res}))
 
-    # 12. the training driver's three recipes on the card
-    train_res = run_training_phase(counters, card)
-    log(f"phase 12 took {train_res['wall_s']:.1f} s")
-    log(json.dumps({"training": train_res}))
+    # 12. the training driver's three recipes on the card, then 13. the
+    # GAN recipe, the variants and the tools, in one temporary directory:
+    # phase 13 derives its data from phase 12's stills and exports its
+    # checkpoints
+    build = ROOT / "sharkshark_tpu_torch" / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        train_res = run_training_phase(counters, card, Path(tmp))
+        log(f"phase 12 took {train_res['wall_s']:.1f} s")
+        log(json.dumps({"training": train_res}))
+        gan_res = run_gan_phase(counters, card, Path(tmp))
+        log(f"phase 13 took {gan_res['wall_s']:.1f} s")
+        log(json.dumps({"gan_variants_tools": gan_res}))
 
     # the kernels line: launches from the main path's run, or, for a route
     # that is off by default, from the run with the routes on
@@ -1886,6 +2330,7 @@ def main() -> int:
     kernels[3]["launches_zoo_cli"] = zoo_cli["fused_conv_stack"]
     kernels[3]["launches_image_service"] = image_res["k4_launches"]
     kernels[2]["launches_train_test"] = train_res["frnet"]["test_launches"]["backward_warp"]
+    kernels[2]["launches_gan_test"] = gan_res["gan"]["test"]["launches"]["backward_warp"]
     for k in kernels:
         assert k["launches"] > 0, f"{k['name']} was not launched on its path"
     log(json.dumps({"defaults": defaults, "routes_on": routes_on, "route_timing": route_rows,

@@ -32,10 +32,10 @@ import torch
 
 from ..ops import conv2d, pixel_shuffle, relu6
 from ..ops import tsm_conv as tsm
-from .torch_import import conv_from_torch, subdict, to_tensors
+from .torch_import import conv_from_torch, conv_to_torch, cpu_state_dict, subdict, to_tensors
 
 __all__ = [
-    "BSVDConfig", "BSVD_32", "SHIFT_NUM", "SHIFT_CONV_ROUTES", "init_params", "from_torch",
+    "BSVDConfig", "BSVD_32", "SHIFT_NUM", "SHIFT_CONV_ROUTES", "init_params", "from_torch", "to_torch",
     "from_jax", "init_stream_state", "init_chunk_state", "chunk_step", "ring_to_fifo_state",
     "state_from_jax", "state_to_numpy",
 ]
@@ -108,31 +108,26 @@ def init_params(
     }, device)
 
 
+# a DenBlock's convs -> their prefix in the reference checkpoint
+# (model.py:276-306), in the pytree's order: down blocks store [conv,
+# norm, act, memconv], so a memconv's keys live under convblock.3 with
+# `net.` as the conv's name (its c1 and c2); up blocks are [memconv,
+# conv] -> convblock.{0,1}
+_DENBLOCK_KEYS = {
+    "inc0": "inc.convblock.0.", "inc1": "inc.convblock.3.",
+    "down0": "downc0.convblock.0.", "down0_mem": "downc0.convblock.3.",
+    "down1": "downc1.convblock.0.", "down1_mem": "downc1.convblock.3.",
+    "up2_mem": "upc2.convblock.0.", "up2": "upc2.convblock.1.",
+    "up1_mem": "upc1.convblock.0.", "up1": "upc1.convblock.1.",
+    "outc0": "outc.convblock.0.", "outc1": "outc.convblock.3.",
+}
+
+
 def _denblock_from_torch(sd: dict, cfg: BSVDConfig) -> dict:
-    """Checkpoint layout per reference load functions (model.py:276-306):
-    down blocks store [conv, norm, act, memconv] so memconv keys live under
-    convblock.3 with `net.` as the conv name; up blocks are
-    [memconv, conv] -> convblock.{0,1}."""
-
-    def mem(prefix):
-        return {
-            "c1": conv_from_torch(sd, prefix + "c1.net."),
-            "c2": conv_from_torch(sd, prefix + "c2.net."),
-        }
-
     return {
-        "inc0": conv_from_torch(sd, "inc.convblock.0."),
-        "inc1": conv_from_torch(sd, "inc.convblock.3."),
-        "down0": conv_from_torch(sd, "downc0.convblock.0."),
-        "down0_mem": mem("downc0.convblock.3."),
-        "down1": conv_from_torch(sd, "downc1.convblock.0."),
-        "down1_mem": mem("downc1.convblock.3."),
-        "up2_mem": mem("upc2.convblock.0."),
-        "up2": conv_from_torch(sd, "upc2.convblock.1."),
-        "up1_mem": mem("upc1.convblock.0."),
-        "up1": conv_from_torch(sd, "upc1.convblock.1."),
-        "outc0": conv_from_torch(sd, "outc.convblock.0."),
-        "outc1": conv_from_torch(sd, "outc.convblock.3."),
+        name: ({"c1": conv_from_torch(sd, prefix + "c1.net."), "c2": conv_from_torch(sd, prefix + "c2.net.")}
+               if name.endswith("_mem") else conv_from_torch(sd, prefix))
+        for name, prefix in _DENBLOCK_KEYS.items()
     }
 
 
@@ -147,6 +142,21 @@ def from_torch(
         "temp1": _denblock_from_torch(subdict(sd, base + "nets_list.0."), cfg),
         "temp2": _denblock_from_torch(subdict(sd, base + "nets_list.1."), cfg),
     }, device)
+
+
+def to_torch(params: dict) -> dict[str, torch.Tensor]:
+    """The inverse of from_torch: a CPU float32 state dict in the
+    reference's two-net key layout (`base_model.nets_list.{0,1}.`)."""
+    sd = {}
+    for i, net in enumerate(("temp1", "temp2")):
+        base = f"base_model.nets_list.{i}."
+        for name, prefix in _DENBLOCK_KEYS.items():
+            if name.endswith("_mem"):
+                sd.update(conv_to_torch(params[net][name]["c1"], base + prefix + "c1.net."))
+                sd.update(conv_to_torch(params[net][name]["c2"], base + prefix + "c2.net."))
+            else:
+                sd.update(conv_to_torch(params[net][name], base + prefix))
+    return cpu_state_dict(sd)
 
 
 def from_jax(np_params: dict, device: str | torch.device = "cpu") -> dict:

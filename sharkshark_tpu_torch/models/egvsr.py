@@ -28,13 +28,14 @@ import numpy as np
 import torch
 
 from ..ops import conv2d, leaky_relu, max_pool2, pad2d, pixel_shuffle, resize, space_to_depth, upsample_tecogan
+from ..ops.resize import _tecogan_kernels
 from ..ops.warp import backward_warp, backward_warp_fast
-from .torch_import import conv_from_torch, to_tensors
+from .torch_import import conv_from_torch, conv_to_torch, cpu_state_dict, to_tensors
 
 __all__ = [
     "EGVSRConfig", "DEFAULT", "PRODUCTION", "init_params", "fnet_apply", "srnet_apply",
     "frnet_step", "init_recurrent_state", "infer_step", "infer_chunk", "infer_sequence", "forward_sequence",
-    "pad_sequence", "config_from_torch", "from_torch", "from_jax",
+    "pad_sequence", "config_from_torch", "from_torch", "to_torch", "from_jax",
 ]
 
 
@@ -347,15 +348,17 @@ def config_from_torch(sd: dict[str, np.ndarray]) -> EGVSRConfig:
     )
 
 
+_FNET_STAGES = {"enc1": "encoder1", "enc2": "encoder2", "enc3": "encoder3",
+                "dec1": "decoder1", "dec2": "decoder2", "dec3": "decoder3", "flow": "flow"}
+
+
 def from_torch(
     sd: dict[str, np.ndarray], cfg: EGVSRConfig = DEFAULT, device: str | torch.device = "cpu",
 ) -> dict:
     """Key map of the reference FNet/SRNet modules (egvsr.py:16-130)."""
-    stages = {"enc1": "encoder1", "enc2": "encoder2", "enc3": "encoder3",
-              "dec1": "decoder1", "dec2": "decoder2", "dec3": "decoder3", "flow": "flow"}
     fnet = {
         k: [conv_from_torch(sd, f"fnet.{name}.0."), conv_from_torch(sd, f"fnet.{name}.2.")]
-        for k, name in stages.items()
+        for k, name in _FNET_STAGES.items()
     }
     srnet = {
         "conv_in": conv_from_torch(sd, "srnet.conv_in.0."),
@@ -367,6 +370,26 @@ def from_torch(
         "conv_out": conv_from_torch(sd, "srnet.conv_out."),
     }
     return to_tensors({"fnet": fnet, "srnet": srnet}, device)
+
+
+def to_torch(params: dict, cfg: EGVSRConfig = DEFAULT) -> dict[str, torch.Tensor]:
+    """The inverse of from_torch: a CPU float32 state dict in the
+    reference's key layout.  A BD config also gets the reference's
+    BicubicUpsample buffer, `upsample_func.kernels` (net_utils.py:143), by
+    which config_from_torch tells a BD checkpoint."""
+    sd = {}
+    for k, name in _FNET_STAGES.items():
+        sd.update(conv_to_torch(params["fnet"][k][0], f"fnet.{name}.0."))
+        sd.update(conv_to_torch(params["fnet"][k][1], f"fnet.{name}.2."))
+    s = params["srnet"]
+    sd.update(conv_to_torch(s["conv_in"], "srnet.conv_in.0."))
+    for i, blk in enumerate(s["blocks"]):
+        sd.update(conv_to_torch(blk[0], f"srnet.resblocks.{i}.conv.0."))
+        sd.update(conv_to_torch(blk[1], f"srnet.resblocks.{i}.conv.2."))
+    sd.update(conv_to_torch(s["conv_out"], "srnet.conv_out."))
+    if cfg.degradation == "BD":
+        sd["upsample_func.kernels"] = torch.tensor(_tecogan_kernels(cfg.scale))
+    return cpu_state_dict(sd)
 
 
 def from_jax(np_params: dict, device: str | torch.device = "cpu") -> dict:

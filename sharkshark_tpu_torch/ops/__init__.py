@@ -1,5 +1,6 @@
 from .nn import conv2d, conv_transpose2d, leaky_relu, max_pool2, pad2d, pixel_shuffle, prelu, relu6, space_to_depth
 from .resize import resize, upsample_tecogan
+from .warp import backward_warp_ac0
 from .color import (
     blur,
     gaussian_kernel_2d,
@@ -13,7 +14,7 @@ from .color import (
 
 __all__ = [
     "conv2d", "conv_transpose2d", "leaky_relu", "max_pool2", "pad2d", "pixel_shuffle", "prelu", "relu6",
-    "space_to_depth", "resize", "upsample_tecogan",
+    "space_to_depth", "resize", "upsample_tecogan", "backward_warp_ac0",
     "blur", "gaussian_kernel_2d", "global_color_match", "local_color_match",
     "sharpen", "to_float", "to_uint8", "to_yuv420",
 ]

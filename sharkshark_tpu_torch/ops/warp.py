@@ -6,6 +6,8 @@ recurrence (counterpart of the JAX package's ops/warp.py).
   the JAX arithmetic step by step (a linspace-normalised grid, then
   de-normalised, clamped to [0, size-1], floor, 4 taps), so that they hold
   the JAX functions tightly.  They are the reference of the kernel below.
+  `backward_warp_ac0` is the STN warp of the VESPCN / SOF-VSR variants
+  (align_corners=False), mapped onto the same sampler.
 - `backward_warp_fast` is the wrapper of K3, the CUDA kernel
   `csrc/backward_warp.cu` (counterpart of the JAX package's Pallas kernel
   ops/pallas/warp_band.py::banded_backward_warp): a CPU tensor runs the
@@ -31,6 +33,7 @@ from .nn import space_to_depth
 __all__ = [
     "grid_sample_bilinear",
     "backward_warp",
+    "backward_warp_ac0",
     "backward_warp_plain",
     "backward_warp_fast",
     "launches",
@@ -111,6 +114,27 @@ def backward_warp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     gx = iu + flow[..., 0].float() * _recip((w - 1.0) / 2.0)
     gy = iv + flow[..., 1].float() * _recip((h - 1.0) / 2.0)
     return grid_sample_bilinear(x, torch.stack([gx, gy], dim=-1))
+
+
+def backward_warp_ac0(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """STN-style warp (reference utils/motion.py:51-91): flow in pixels,
+    normalised by the size (not size-1), sampled as grid_sample does with
+    align_corners=False and border padding.  The align_corners=False
+    coordinates are mapped into the align_corners=True sampler's frame,
+    pixel = (g + 1) / 2 * size - 0.5, by the JAX package's formula, term
+    for term (its divisions stay divisions: this equals the JAX function
+    run op by op bit for bit, and its jitted form within 5e-5 at 180x320)."""
+    n, h, w, _ = x.shape
+    ar = torch.arange(max(h, w), dtype=torch.float32, device=x.device) + 0.5
+    iu = (ar[:w] / w * 2.0 - 1.0)[None, None, :]
+    iv = (ar[:h] / h * 2.0 - 1.0)[None, :, None]
+    gx = iu + flow[..., 0].float() / w * 2.0
+    gy = iv + flow[..., 1].float() / h * 2.0
+    px = (gx + 1.0) * (w / 2.0) - 0.5
+    py = (gy + 1.0) * (h / 2.0) - 0.5
+    g1x = px / ((w - 1.0) / 2.0) - 1.0
+    g1y = py / ((h - 1.0) / 2.0) - 1.0
+    return grid_sample_bilinear(x, torch.stack([g1x, g1y], dim=-1))
 
 
 def backward_warp_plain(

@@ -1,11 +1,12 @@
 """Training checkpoint save and resume (counterpart of the JAX package's
 train/checkpoint.py).
 
-A checkpoint is one `torch.save` file holding the whole TrainState: the
-parameter tree, the optimizer's state dict (Adam's moments and counts)
-and the step, so that a resumed run continues exactly where the saved
-one stood (the reference leaves save_training_state a TODO,
-models/base_model.py:78-89).  Files are named `ckpt_{step:09d}` under
+A checkpoint is one `torch.save` file holding the whole train state,
+field by field: each parameter tree, each optimizer's state dict (Adam's
+moments and counts) and the counts (a TrainState's params / opt / step;
+a GAN state's params_g / params_d / opt_g / opt_d / step / cnt_upd_d),
+so that a resumed run continues exactly where the saved one stood (the
+reference leaves save_training_state a TODO, models/base_model.py:78-89).  Files are named `ckpt_{step:09d}` under
 the run's root, as the JAX package names its orbax directories, so
 `latest_checkpoint` orders both the same way.  They load with
 `weights_only=True`.
@@ -13,11 +14,12 @@ the run's root, as the JAX package names its orbax directories, so
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import torch
 
-from .vsr import TrainState, param_leaves
+from .vsr import param_leaves
 
 __all__ = ["save_checkpoint", "load_checkpoint", "load_params", "latest_checkpoint"]
 
@@ -34,23 +36,31 @@ def _detached(tree):
     return tree.detach()
 
 
-def save_checkpoint(root: str, state: TrainState, step: int) -> str:
+def save_checkpoint(root: str, state, step: int) -> str:
+    """Write `state` (a TrainState or a GANTrainState) as
+    ckpt_{step:09d} under `root`."""
     path = _ckpt_path(root, step)
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    torch.save({"params": _detached(state.params), "opt": state.opt.state_dict(), "step": state.step}, path)
+    blob = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if isinstance(v, torch.optim.Optimizer):
+            v = v.state_dict()
+        elif isinstance(v, (dict, list)):
+            v = _detached(v)
+        blob[f.name] = v
+    torch.save(blob, path)
     return path
 
 
 def load_params(path: str) -> dict:
-    """The parameter tree of a checkpoint, on the CPU."""
-    return torch.load(path, map_location="cpu", weights_only=True)["params"]
-
-
-def load_checkpoint(path: str, template: TrainState) -> TrainState:
-    """Restore a checkpoint into `template` (a fresh TrainState of the same
-    recipe, which gives the structure and the device), in place."""
+    """The (generator's) parameter tree of a checkpoint, on the CPU."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    dst, src = param_leaves(template.params), param_leaves(ckpt["params"])
+    return ckpt["params"] if "params" in ckpt else ckpt["params_g"]
+
+
+def _copy_params(path: str, dst_tree, src_tree) -> None:
+    dst, src = param_leaves(dst_tree), param_leaves(src_tree)
     if len(dst) != len(src):
         raise ValueError(f"{path}: {len(src)} parameter tensors, the recipe has {len(dst)}")
     with torch.no_grad():
@@ -58,8 +68,23 @@ def load_checkpoint(path: str, template: TrainState) -> TrainState:
             if d.shape != s.shape:
                 raise ValueError(f"{path}: a parameter of shape {tuple(s.shape)}, the recipe's is {tuple(d.shape)}")
             d.copy_(s)
-    template.opt.load_state_dict(ckpt["opt"])
-    template.step = int(ckpt["step"])
+
+
+def load_checkpoint(path: str, template):
+    """Restore a checkpoint into `template` (a fresh state of the same
+    recipe, which gives the structure and the device), in place."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    names = [f.name for f in dataclasses.fields(template)]
+    if sorted(ckpt) != sorted(names):
+        raise ValueError(f"{path}: holds {sorted(ckpt)}, the recipe's state has {sorted(names)}")
+    for name in names:
+        v = getattr(template, name)
+        if isinstance(v, torch.optim.Optimizer):
+            v.load_state_dict(ckpt[name])
+        elif isinstance(v, (dict, list)):
+            _copy_params(path, v, ckpt[name])
+        else:
+            setattr(template, name, int(ckpt[name]))
     return template
 
 
