@@ -105,6 +105,19 @@ Phases (any failure exits non-zero, and nothing is caught):
      their default configs on a 180x320 LR input, card against CPU and
      profile mode; after them, the export tools on phase 12's and 13's
      checkpoints, and quality_eval on the GAN test's frames;
+ 14. BSVD-64 and the rest of the denoise and SR library: K1 at BSVD-64's
+     C=128 shape (T=4 at 360x640) against its plain version, timed with
+     its bound and a cuDNN conv; the denoise service at 720p -> 1440p
+     with BSVD-64 (seeded weights written by bsvd.to_torch, passed by
+     path) and the minted SRVGG, 8 micro-batches of 4 and the drain
+     (N + min(N, 16) frames, 8 K1 launches a chunk and none at C = 256,
+     ms/frame, peak memory) and its step on the card against the CPU at a
+     small size; upscale_single_denoise (the per-frame stream) over 24
+     frames with the minted BSVD-32 (no K1 launch) against the chunked
+     service's frames; srvgg.apply_down at d = 2, 3, 4 on a 720p frame
+     through K4 against the layer-by-layer body; tools/export_model.py
+     for srvgg and egvsr at 1x360x640x3, reloaded, against eager, with
+     the K4 and K3 launches counted through the reloaded program;
 then one JSON line of kernel numbers, the card's name and power limit,
 and the result line last.  Exits 2 without a result when CUDA is
 unavailable or the script stands outside the repo checkout.
@@ -161,9 +174,10 @@ def check_tsm_conv(tsm, bench, c: int, h: int, w: int) -> dict:
     row = bench.measure(c, h, w)
     row["tiles"], row["blocks"] = tsm.kernel_schedule(row["t"], 1, h, w, c)
     log(f"tsm_conv C={c} {h}x{w} T={row['t']}: max|err| {row['max_abs_err']:.4g} (rtol=atol={bench.TOL}); "
-        f"kernel {row['kernel_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, one cuDNN conv on the "
-        f"built mix {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
-        f"{100 * row['bound_share']:.1f}% of the bound; {row['blocks']} persistent blocks for "
+        f"kernel {row['kernel_ms']:.4f} ms a call, {row['device_ms']:.4f} ms back to back; plain "
+        f"{row['plain_ms']:.4f} ms; one cuDNN conv on the built mix {row['library_ms']:.4f} ms a call, "
+        f"{row['library_device_ms']:.4f} ms back to back; bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+        f"{100 * row['bound_share']:.1f}% of it back to back; {row['blocks']} persistent blocks for "
         f"{row['tiles']} tiles")
     return row
 
@@ -212,23 +226,27 @@ def check_tsm_conv_pair(tsm, bench, c: int, h: int, w: int, t: int = 4) -> dict:
     y1_plain = tsm.tsm_conv_plain(x, carries[0], carries[1], w1, b1, "relu6")
     mix1, mix2 = bench.built_mix(x, carries[0], carries[1]), bench.built_mix(y1_plain, carries[2], carries[3])
     w1_oihw, w2_oihw = bench.oihw(w1), bench.oihw(w2)
-    kernel_ms = bench.time_ms(lambda: tsm.tsm_conv_pair(*args))
-    two_k1_ms = bench.time_ms(two_k1)
-    plain_ms = bench.time_ms(lambda: tsm.tsm_conv_pair_plain(*args))
-    library_ms = bench.time_ms(lambda: (F.conv2d(mix1, w1_oihw, b1, padding=1), F.conv2d(mix2, w2_oihw, b2, padding=1)))
+    def kernel():
+        return tsm.tsm_conv_pair(*args)
+
+    def library():
+        return F.conv2d(mix1, w1_oihw, b1, padding=1), F.conv2d(mix2, w2_oihw, b2, padding=1)
 
     flops = 2 * 2 * 9 * c * c * h * w * t
     nbytes = nbytes_of(x, *carries, w1, b1, w2, b2, got_y2, got_carry)
     row = {
-        "c": c, "h": h, "w": w, "t": t, "max_abs_err": max_err, "kernel_ms": kernel_ms,
-        "two_k1_ms": two_k1_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "flops": flops, "bytes": nbytes,
+        "c": c, "h": h, "w": w, "t": t, "max_abs_err": max_err,
+        "kernel_ms": bench.time_ms(kernel), "device_ms": bench.device_ms(kernel),
+        "two_k1_ms": bench.time_ms(two_k1), "plain_ms": bench.time_ms(lambda: tsm.tsm_conv_pair_plain(*args)),
+        "library_ms": bench.time_ms(library), "library_device_ms": bench.device_ms(library),
+        "flops": flops, "bytes": nbytes, **bench.bound(flops, nbytes),
     }
-    row.update(bench.bound(flops, nbytes))
+    row["bound_share"] = row["bound_ms"] / row["device_ms"]
     log(f"tsm_conv_pair C={c} {h}x{w} T={t}: max|err| {max_err:.4g} (rtol=atol={bench.TOL}); "
-        f"kernel {kernel_ms:.4f} ms, two tsm_conv calls {two_k1_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"two cuDNN convs on the built mixes {library_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
-        f"({row['bound_by']})")
+        f"kernel {row['kernel_ms']:.4f} ms a call, {row['device_ms']:.4f} ms back to back; two tsm_conv "
+        f"calls {row['two_k1_ms']:.4f} ms; plain {row['plain_ms']:.4f} ms; two cuDNN convs on the built "
+        f"mixes {row['library_ms']:.4f} ms a call, {row['library_device_ms']:.4f} ms back to back; bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}), {100 * row['bound_share']:.1f}% of it back to back")
     return row
 
 
@@ -243,10 +261,11 @@ def check_conv_stack(cs, bench_cs, n_layers: int, with_bias: bool) -> dict:
     row["tiles"], row["blocks"] = cs.kernel_schedule(n, h, w, n_layers)
     log(f"fused_conv_stack L={n_layers} {'bias' if with_bias else 'no bias'} ({n},{h},{w},64) bf16: "
         f"max|err| {row['max_abs_err']:.4g} (limit {bench_cs.TOL * max(row['ref_max'], 1.0):.4g}); "
-        f"kernel {row['kernel_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, conv2d+bias+prelu route "
-        f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
-        f"{100 * row['bound_share']:.1f}% of the bound; {n_layers} launches of {row['blocks']} blocks for "
-        f"{row['tiles']} tiles")
+        f"kernel {row['kernel_ms']:.4f} ms a call, {row['device_ms']:.4f} ms back to back; plain "
+        f"{row['plain_ms']:.4f} ms; conv2d+bias+prelu route {row['library_ms']:.4f} ms a call, "
+        f"{row['library_device_ms']:.4f} ms back to back; bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+        f"{100 * row['bound_share']:.1f}% of it back to back; {n_layers} launches of {row['blocks']} blocks "
+        f"for {row['tiles']} tiles")
     return row
 
 
@@ -302,28 +321,42 @@ class Counters:
                 "backward_warp": self.wp.launches, "fused_conv_stack": self.cs.launches}
 
 
+def k1_per_chunk(bsvd_cfg) -> int:
+    """K1 launches of one chunk: each DenBlock's shift convs at the widths
+    K1 is built for, 4 a width (two mem blocks of two convs); BSVD-32's 16
+    (C = 64, 128), BSVD-64's 8 (C = 128; its C = 256 take the
+    shift-and-concatenate conv)."""
+    from sharkshark_tpu_torch.ops import tsm_conv as tsm
+
+    return 2 * sum(4 for c in bsvd_cfg.chns[1:] if c in tsm.KERNEL_CHANNELS)
+
+
 def denoise_launches(cold: int, warm: int, flush: int, tsm_pair: bool, conv_stack: int,
-                     body_layers: int = 32) -> dict:
-    """Kernel launches that a run of the denoise path implies: 16 K1 per
-    chunk, with tsm_pair too (a warm chunk's 8 K2 calls make 2 each), and
-    one K4 a body layer per SRVGG apply (one per chunk; 32 for
-    general-x4v3, 16 for animevideov3) with any conv_stack = L > 0."""
+                     body_layers: int = 32, k1: int = 16) -> dict:
+    """Kernel launches that a run of the denoise path implies: k1 K1 per
+    chunk (16 for BSVD-32), with tsm_pair too (a warm chunk's K2 calls
+    make 2 each), and one K4 a body layer per SRVGG apply (one per chunk;
+    32 for general-x4v3, 16 for animevideov3) with any conv_stack = L > 0."""
     chunks = cold + warm + flush
-    return {"tsm_conv": 16 * chunks,
-            "tsm_conv_pair": 8 * warm if tsm_pair else 0, "backward_warp": 0,
+    return {"tsm_conv": k1 * chunks,
+            "tsm_conv_pair": k1 // 2 * warm if tsm_pair else 0, "backward_warp": 0,
             "fused_conv_stack": chunks * body_layers if conv_stack else 0}
 
 
 def run_main_path(service_mod, counters, card: str, tsm_pair: bool, conv_stack: int,
-                  jobs: int = 8, batch: int = 4) -> tuple[dict, np.ndarray]:
+                  jobs: int = 8, batch: int = 4, denoise_weights: str = str(MINTED / "bsvd-derived-32.pth"),
+                  bsvd_cfg=None) -> tuple[dict, np.ndarray]:
     from sharkshark_tpu_torch.models import bsvd
     from sharkshark_tpu_torch.runtime import EOF
 
+    bsvd_cfg = bsvd_cfg or bsvd.BSVD_32
     route = f"tsm_pair={tsm_pair}, conv_stack={conv_stack}"
+    if bsvd_cfg != bsvd.BSVD_32:
+        route += f", BSVD chns {bsvd_cfg.chns}"
     svc = service_mod.EsrganUpscalerService(
         lr_level=3, output_shape=(1440, 2560), denoising=True, denoise_rate=0.75,
         batch_size=batch, weights=str(MINTED / "srvgg-derived-x4.pth"),
-        denoise_weights=str(MINTED / "bsvd-derived-32.pth"), tsm_pair=tsm_pair, conv_stack=conv_stack,
+        denoise_weights=denoise_weights, bsvd_cfg=bsvd_cfg, tsm_pair=tsm_pair, conv_stack=conv_stack,
     )
     frames = make_frames(jobs * batch, 720, 1280, seed=7)
     got, stamps = [], []
@@ -334,6 +367,7 @@ def run_main_path(service_mod, counters, card: str, tsm_pair: bool, conv_stack: 
 
     svc.on_queue = on_queue
     counters.reset()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     svc.start()
     for i in range(jobs):
@@ -344,6 +378,7 @@ def run_main_path(service_mod, counters, card: str, tsm_pair: bool, conv_stack: 
     wall = time.perf_counter() - t0
     svc.join(timeout=60)
     launches = counters.read()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     assert svc._error is None and not svc.is_alive, f"service failed: {svc._error!r}"
 
     assert isinstance(got[-1], EOF), got[-1]
@@ -355,7 +390,8 @@ def run_main_path(service_mod, counters, card: str, tsm_pair: bool, conv_stack: 
     for o in outs:
         assert o.dtype == np.uint8 and o.shape[1:] == (1440, 2560, 3), (o.dtype, o.shape)
     first_warm = bsvd.SHIFT_NUM // batch
-    want = denoise_launches(first_warm, jobs - first_warm, bsvd.SHIFT_NUM // batch, tsm_pair, conv_stack)
+    want = denoise_launches(first_warm, jobs - first_warm, bsvd.SHIFT_NUM // batch, tsm_pair, conv_stack,
+                            k1=k1_per_chunk(bsvd_cfg))
     assert launches == want, f"denoise path ({route}): launches {launches}, expected {want}"
     last = outs[jobs - 1]
     assert last.std() > 5, "the output frames are flat"
@@ -364,9 +400,9 @@ def run_main_path(service_mod, counters, card: str, tsm_pair: bool, conv_stack: 
     # for its own step, so their spacing is the warm step's time
     warm_s = (stamps[jobs - 1] - stamps[first_warm - 1]) / ((jobs - first_warm) * batch)
     res = {"route": route, "frames": total, "launches": launches, "chunks": jobs + bsvd.SHIFT_NUM // batch,
-           "wall_s": wall, "warm_ms_per_frame": warm_s * 1e3, "warm_fps": 1.0 / warm_s}
+           "wall_s": wall, "warm_ms_per_frame": warm_s * 1e3, "warm_fps": 1.0 / warm_s, "peak_mem_gb": peak_gb}
     log(f"denoise path ({route}): {total} frames of 1440x2560x3 uint8 ({n_live} live + {n_drained} "
-        f"drained), launches {launches}, wall {wall:.3f} s")
+        f"drained), launches {launches}, wall {wall:.3f} s, peak memory {peak_gb:.3f} GB")
     log(f"warm step ({route}): {res['warm_ms_per_frame']:.3f} ms/frame, {res['warm_fps']:.3f} frames/s "
         f"(720p->1440p, denoise on, batch {batch}) on {card}")
     return res, np.concatenate(outs)
@@ -422,14 +458,16 @@ def time_denoise_routes(routes: list[dict], card: str, batch: int = 4, iters: in
 # --------------------------------------------------------------- phase 5
 
 
-def check_step_against_cpu(counters, tsm_pair: bool, conv_stack: int) -> float:
+def check_step_against_cpu(counters, tsm_pair: bool, conv_stack: int,
+                           den_path: str = str(MINTED / "bsvd-derived-32.pth"), bsvd_cfg=None) -> float:
     from sharkshark_tpu_torch.models import bsvd, srvgg, torch_import
     from sharkshark_tpu_torch.upscale import steps
 
+    bsvd_cfg = bsvd_cfg or bsvd.BSVD_32
     lr_shape, out_shape, t, chunks = (64, 96), (128, 192), 4, 6
     frames = make_frames(t * chunks, *lr_shape, seed=11)
     sd_sr = torch_import.load_state_dict(str(MINTED / "srvgg-derived-x4.pth"))
-    sd_den = torch_import.load_state_dict(str(MINTED / "bsvd-derived-32.pth"))
+    sd_den = torch_import.load_state_dict(den_path)
 
     def run(device, dtype):
         spec = steps.UpscaleSpec(lr_shape=lr_shape, output_shape=out_shape,
@@ -440,23 +478,23 @@ def check_step_against_cpu(counters, tsm_pair: bool, conv_stack: int) -> float:
         def sr_apply(p, x):
             return srvgg.apply_down_rational(p, x, 2, 1, conv_stack=conv_stack)
 
-        state = steps.init_denoise_state(1, spec, device=device)
+        state = steps.init_denoise_state(1, spec, bsvd_cfg, device=device)
         outs = []
         with torch.inference_mode():
             for i in range(chunks):
                 out, state = steps.upscale_batch_denoise(
                     sr_apply, params, state, torch.from_numpy(frames[i * t : (i + 1) * t]).to(device),
-                    spec, warm=state["t"] >= bsvd.SHIFT_NUM, tsm_pair=tsm_pair)
+                    spec, bsvd_cfg, warm=state["t"] >= bsvd.SHIFT_NUM, tsm_pair=tsm_pair)
                 outs.append(out.cpu().numpy())
         return np.concatenate(outs)
 
     counters.reset()
     card = run(torch.device("cuda"), torch.bfloat16)
-    want = denoise_launches(4, chunks - 4, 0, tsm_pair, conv_stack)
+    want = denoise_launches(4, chunks - 4, 0, tsm_pair, conv_stack, k1=k1_per_chunk(bsvd_cfg))
     assert counters.read() == want, f"the card's step launched {counters.read()}, expected {want}"
     cpu = run(torch.device("cpu"), torch.float32)
     value = psnr(card, cpu)
-    log(f"whole step (tsm_pair={tsm_pair}, conv_stack={conv_stack}), card bf16 vs CPU float32 at "
+    log(f"whole step (tsm_pair={tsm_pair}, conv_stack={conv_stack}, BSVD chns {bsvd_cfg.chns}), card bf16 vs CPU float32 at "
         f"{lr_shape} -> {out_shape}, {chunks} chunks of {t} (4 cold, {chunks - 4} warm): "
         f"PSNR {value:.3f} dB (min {PSNR_MIN})")
     assert value >= PSNR_MIN, f"PSNR {value:.3f} dB below {PSNR_MIN}"
@@ -1080,11 +1118,12 @@ def check_k4_at_image_shapes(bench_cs, shapes: list[tuple[int, int, int]], card:
     rows = []
     for shape in shapes:
         row = bench_cs.measure(1, True, shape=shape, reps=5)
-        rows.append({k: row[k] for k in ("shape", "max_abs_err", "ref_max", "kernel_ms", "plain_ms", "library_ms",
-                                         "bound_ms", "bound_by")})
+        rows.append({k: row[k] for k in ("shape", "max_abs_err", "ref_max", "kernel_ms", "device_ms", "plain_ms",
+                                         "library_ms", "library_device_ms", "bound_ms", "bound_by")})
         log(f"fused_conv_stack at the image path's {tuple(row['shape'])}: max|err| {row['max_abs_err']:.4g} "
-            f"(limit {bench_cs.TOL * max(row['ref_max'], 1.0):.4g}); kernel {row['kernel_ms']:.4f} ms, plain "
-            f"{row['plain_ms']:.4f} ms, conv2d+bias+prelu route {row['library_ms']:.4f} ms, bound "
+            f"(limit {bench_cs.TOL * max(row['ref_max'], 1.0):.4g}); kernel {row['kernel_ms']:.4f} ms a call, "
+            f"{row['device_ms']:.4f} ms back to back; plain {row['plain_ms']:.4f} ms; conv2d+bias+prelu route "
+            f"{row['library_ms']:.4f} ms a call, {row['library_device_ms']:.4f} ms back to back; bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}) on {card}")
     return rows
 
@@ -2167,6 +2206,149 @@ def run_gan_phase(counters, card: str, tmp: Path) -> dict:
     return res
 
 
+# -------------------------------------------------------------- phase 14
+
+
+def run_single_denoise(counters, card: str, chunked_out: np.ndarray, n: int = 24) -> dict:
+    """steps.upscale_single_denoise (bsvd.stream_step, one frame a call,
+    the reference's own dataflow) over the first n frames that the main
+    path's service ran, with the minted weights as the service holds them
+    (bf16 on the card): no K1 launch, and its frames j >= SHIFT_NUM, which
+    blend frame j with the denoised frame j - SHIFT_NUM as the chunked
+    service's frame j does, against the service's by PSNR."""
+    from sharkshark_tpu_torch.models import bsvd, srvgg, torch_import
+    from sharkshark_tpu_torch.upscale import steps
+
+    dev, dtype = torch.device("cuda"), torch.bfloat16
+    spec = steps.UpscaleSpec(lr_shape=(720, 1280), output_shape=(1440, 2560), denoise_rate=0.75,
+                             compute_dtype=dtype)
+    params = torch_import.to_tensors({
+        "sr": srvgg.from_torch(torch_import.load_state_dict(str(MINTED / "srvgg-derived-x4.pth"))),
+        "denoise": bsvd.from_torch(torch_import.load_state_dict(str(MINTED / "bsvd-derived-32.pth"))),
+    }, dev, dtype)
+    stack = srvgg.resolve_conv_stack(srvgg.GENERAL_X4V3, None)
+
+    def sr_apply(p, x):
+        return srvgg.apply_down_rational(p, x, 2, 1, conv_stack=stack)
+
+    frames = make_frames(32, 720, 1280, seed=7)[:n]  # run_main_path's frames
+    state = steps.init_denoise_state(1, spec, device=dev)
+    outs = []
+    counters.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for f in frames:
+            out, state = steps.upscale_single_denoise(sr_apply, params, state,
+                                                      torch.from_numpy(f[None]).to(dev), spec)
+            outs.append(out.cpu().numpy())
+    wall = time.perf_counter() - t0
+    launches = counters.read()
+    assert launches["tsm_conv"] == 0 and launches["fused_conv_stack"] == n * 32, launches
+    single = np.concatenate(outs)
+    k = bsvd.SHIFT_NUM
+    value = psnr(single[k:], chunked_out[k:n])
+    res = {"frames": n, "launches": launches, "ms_per_frame": wall / n * 1e3,
+           "psnr_vs_chunked_service_db": value, "compared_frames": [k, n]}
+    log(f"upscale_single_denoise, {n} frames at 720p->1440p with the minted BSVD-32 on {card}: "
+        f"{res['ms_per_frame']:.3f} ms/frame (host clock, fetch included), launches {launches}; frames "
+        f"{k}..{n - 1} against the chunked service's: PSNR {value:.3f} dB (min 40)")
+    assert value >= 40.0, "the per-frame stream disagrees with the chunked service"
+    return res
+
+
+def check_apply_down(counters, card: str) -> list[dict]:
+    """srvgg.apply_down at d = 2, 3, 4 on a 720p frame (720x1278 for d=3,
+    whose H and W must divide by 3) with the minted weights in bf16, the
+    body through K4 (32 launches a call) against the layer-by-layer body,
+    by PSNR of the clamped outputs, and each timed (CUDA events, median of
+    10)."""
+    from sharkshark_tpu_torch.models import srvgg, torch_import
+    from sharkshark_tpu_torch.tools import bench_tsm_conv as bench
+
+    dev, dtype = torch.device("cuda"), torch.bfloat16
+    params = torch_import.to_tensors(
+        srvgg.from_torch(torch_import.load_state_dict(str(MINTED / "srvgg-derived-x4.pth"))), dev, dtype)
+    stack = srvgg.resolve_conv_stack(srvgg.GENERAL_X4V3, None)
+    x = torch.from_numpy(make_frames(1, 720, 1280, seed=23)).to(dev).to(dtype) / 255
+    rows = []
+    with torch.inference_mode():
+        for d in (2, 3, 4):
+            xd = x[:, :, : 1278 if d == 3 else 1280].contiguous()
+            counters.reset()
+            got = srvgg.apply_down(params, xd, d, conv_stack=stack)
+            torch.cuda.synchronize()
+            launches = counters.read()["fused_conv_stack"]
+            want = srvgg.apply_down(params, xd, d, conv_stack=0)
+
+            def u8(y):
+                return (y.float().clamp(0, 1) * 255).cpu().numpy()
+
+            row = {"d": d, "in": list(xd.shape), "out": list(got.shape), "k4_launches": launches,
+                   "psnr_vs_layer_by_layer_db": psnr(u8(got), u8(want)),
+                   "ms": bench.time_ms(lambda: srvgg.apply_down(params, xd, d, conv_stack=stack), reps=10),
+                   "layer_by_layer_ms": bench.time_ms(lambda: srvgg.apply_down(params, xd, d, conv_stack=0),
+                                                      reps=10)}
+            rows.append(row)
+            log(f"apply_down d={d} {tuple(xd.shape)} -> {tuple(got.shape)} bf16 on {card}: K4 {launches} "
+                f"launches, {row['ms']:.3f} ms (layer by layer {row['layer_by_layer_ms']:.3f} ms), PSNR vs the "
+                f"layer-by-layer body {row['psnr_vs_layer_by_layer_db']:.3f} dB (min 40)")
+            assert launches == 32, launches
+            assert got.shape == (1, 4 * xd.shape[1] // d, 4 * xd.shape[2] // d, 3)
+            assert row["psnr_vs_layer_by_layer_db"] >= 40.0, row
+    return rows
+
+
+def run_exports(tmp: Path, card: str) -> dict:
+    """tools/export_model.py for srvgg and egvsr at 1x360x640x3 on the card
+    (bf16): exported with K4 and K3 as operator calls, saved, reloaded,
+    run against the eager function, its kernel launches counted through
+    the reloaded program, and its speed test."""
+    from sharkshark_tpu_torch.tools import export_model
+
+    want = {"srvgg": {"tsm_conv": 0, "backward_warp": 0, "conv_stack": 32},
+            "egvsr": {"tsm_conv": 0, "backward_warp": 1, "conv_stack": 0}}
+    res = {}
+    for model, launches in want.items():
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            r = export_model.main(["--model", model, "--shape", "1,360,640,3", "--out",
+                                   str(tmp / f"{model}.pt2"), "--speed-test", "--iters", "10"])
+        r["wall_s"] = time.perf_counter() - t0
+        res[model] = r
+        log(f"export_model {model} 1x360x640x3 bf16 on {card}: ops {r['kernel_ops']}, {r['bytes']} bytes, "
+            f"reloaded max|err| vs eager {r['max_abs_err']:.4g}, launches through the program "
+            f"{r['launches']}, speed test {r['ms']:.3f} ms/iter (eager {r['eager_ms']:.3f}), "
+            f"{r['wall_s']:.1f} s in all")
+        assert r["launches"] == launches, (model, r["launches"])
+        assert r["out_shape"] == [1, 1440, 2560, 3]
+    return res
+
+
+def run_bsvd64_phase(service_mod, counters, bench, tsm, card: str, main_out: np.ndarray, tmp: Path) -> dict:
+    """Phase 14: K1 at BSVD-64's C=128 shape; the denoise service with
+    BSVD-64 (seeded weights written by bsvd.to_torch, by path) and the
+    minted SRVGG at 720p -> 1440p; the card against the CPU with BSVD-64;
+    upscale_single_denoise against the chunked service; apply_down; and
+    export_model."""
+    from sharkshark_tpu_torch.models import bsvd
+
+    t_phase = time.perf_counter()
+    res = {"k1_c128_360x640": check_tsm_conv(tsm, bench, 128, 360, 640)}
+    path = tmp / "bsvd-64-seeded.pth"
+    torch.save(bsvd.to_torch(bsvd.init_params(torch.Generator().manual_seed(14), bsvd.BSVD_64)), path)
+    defaults = {"tsm_pair": False, "conv_stack": 1}
+    res["service"], _ = run_main_path(service_mod, counters, card, **defaults, denoise_weights=str(path),
+                                      bsvd_cfg=bsvd.BSVD_64)
+    res["service"]["k1_per_warm_chunk"] = k1_per_chunk(bsvd.BSVD_64)
+    res["step_psnr_db"] = check_step_against_cpu(counters, **defaults, den_path=str(path), bsvd_cfg=bsvd.BSVD_64)
+    res["single_denoise"] = run_single_denoise(counters, card, main_out)
+    res["apply_down"] = check_apply_down(counters, card)
+    res["export_model"] = run_exports(tmp, card)
+    res["wall_s"] = time.perf_counter() - t_phase
+    return res
+
+
 def get_bytes(url: str) -> bytes:
     import urllib.request
 
@@ -2177,7 +2359,11 @@ def get_bytes(url: str) -> bytes:
 
 def kernel_entry(bench, name: str, source: str, replaces: str, launches: int, rows: list[dict]) -> dict:
     """One kernel of the `kernels` line: per launch, averaged over `rows`
-    (the shapes the path gives it), with the bound of that same work."""
+    (the shapes the path gives it), with the bound of that same work.
+    `ms` and `library_ms` are device times of calls back to back (the
+    host's work overlapped), `call_ms` and `library_call_ms` the time
+    around one call (its host work included where the device waits for
+    it), `plain_ms` around one call."""
     def mean(key):
         return sum(r[key] for r in rows) / len(rows)
 
@@ -2186,8 +2372,9 @@ def kernel_entry(bench, name: str, source: str, replaces: str, launches: int, ro
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": mean("kernel_ms"), "kernel_ms": mean("kernel_ms"), "plain_ms": mean("plain_ms"),
-        "bound_ms": b["bound_ms"] / len(rows), "bound_by": b["bound_by"], "library_ms": mean("library_ms"),
+        "ms": mean("device_ms"), "call_ms": mean("kernel_ms"), "plain_ms": mean("plain_ms"),
+        "bound_ms": b["bound_ms"] / len(rows), "bound_by": b["bound_by"], "library_ms": mean("library_device_ms"),
+        "library_call_ms": mean("library_ms"),
         "shapes": rows,
     }
 
@@ -2305,6 +2492,14 @@ def main() -> int:
         log(f"phase 13 took {gan_res['wall_s']:.1f} s")
         log(json.dumps({"gan_variants_tools": gan_res}))
 
+    # 14. BSVD-64 through the service (K1 at C=128, 360x640), the
+    # per-frame denoise stream, SRVGG's integer-ratio epilogues and the
+    # exported programs
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        bsvd64_res = run_bsvd64_phase(service_mod, counters, bench, tsm, card, main_out, Path(tmp))
+    log(f"phase 14 took {bsvd64_res['wall_s']:.1f} s")
+    log(json.dumps({"bsvd64_single_epilogues_export": bsvd64_res}))
+
     # the kernels line: launches from the main path's run, or, for a route
     # that is off by default, from the run with the routes on
     stack_row = next(r for r in stack_rows if r["layers"] == stack_l and r["bias"])
@@ -2321,12 +2516,15 @@ def main() -> int:
                      "experiments/conv_stack.py:252", on_res["launches"]["fused_conv_stack"], [stack_row]),
     ]
     kernels[1]["note"] = "2 launches of K1 a call"
-    kernels[2]["device_ms"] = warp_case["device_ms"]
     kernels[2]["cases"] = warp_rows
     kernels[2]["max_abs_err"] = max(r["max_abs_err"] for r in warp_rows)
     kernels[3]["cases"] = stack_rows
     zoo_cli = zoo_res["cli"][0]["launches"]  # animevideov3 with the default denoise
     kernels[0]["launches_zoo_cli"] = zoo_cli["tsm_conv"]
+    # K1 at BSVD-64's C=128 shape, beside the main path's (the headline
+    # numbers stay the main path's), with its launches on that path
+    kernels[0]["shapes"].append({**bsvd64_res["k1_c128_360x640"], "path": "BSVD-64 service"})
+    kernels[0]["launches_bsvd64"] = bsvd64_res["service"]["launches"]["tsm_conv"]
     kernels[3]["launches_zoo_cli"] = zoo_cli["fused_conv_stack"]
     kernels[3]["launches_image_service"] = image_res["k4_launches"]
     kernels[2]["launches_train_test"] = train_res["frnet"]["test_launches"]["backward_warp"]

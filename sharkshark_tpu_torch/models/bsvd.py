@@ -1,22 +1,34 @@
-"""BSVD streaming video denoiser, chunked (layer-major) evaluation
-(counterpart of the JAX package's models/bsvd.py chunk path).
+"""BSVD streaming video denoiser (counterpart of the JAX package's
+models/bsvd.py): the single-frame path, the per-frame stream and the
+chunked (layer-major) evaluation that the services run.
 
 Two U-Net DenBlocks whose 3x3 convs inside the down/up stages are
 bidirectional temporal-shift convs (reference src/upscale/model/bsvd/
 model.py:22-588): the output aligned to frame g reads
 [x_{g+1}[:fold] | x_{g-1}[fold:2fold] | x_g[2fold:]] of its own layer's
-input.  `chunk_step` runs every conv once per chunk of T frames, batched
-over the chunk; each conv carries the previous frame (`center`) and a
-1/8-channel slice of the frame before it (`left`), and the MemSkip
-FIFOs carry the frames between push and pop.  Warm-up and end-of-clip
-flushing are a per-conv window mask over the chunk's global frame
-indices.  Every temporal-shift conv goes through ops/tsm_conv.py: the
-CUDA kernel K1 on the card (per conv, or with tsm_pair per mem block of a
-warm chunk through K2's wrapper, which chains two K1 launches), the plain
-versions on the CPU.  Training asks for `shift_conv="library"`, which
-routes every shift conv through the shift-and-concatenate + cuDNN conv
-that the JAX package computes in XLA on this path: it takes float32 and
-has a backward, where K1 takes bf16 and has none.
+input.  Each conv carries the previous frame (`center`) and a
+1/8-channel slice of the frame before it (`left`); the MemSkip FIFOs
+carry the frames between push and pop.
+
+- `apply_single` is the reference production path's collapsed form
+  (fresh state and a full flush every call): every shift conv sees zeros
+  in its first 2*fold channels, one feed-forward pass.
+- `stream_step` feeds one frame a call, as the reference does, with
+  every conv's state gated by its pipeline depth and the MemSkip FIFOs
+  as rings; `denoise_clip` runs a whole clip through it, flush included.
+  Its shift convs are the shift-and-concatenate conv on one frame.
+- `chunk_step` runs every conv once per chunk of T frames, batched over
+  the chunk; warm-up and end-of-clip flushing are a per-conv window mask
+  over the chunk's global frame indices.  Chaining it over any split of
+  a clip equals denoise_clip.  Its temporal-shift convs go through
+  ops/tsm_conv.py: K1 on the card where the kernel is built for the
+  width (C in tsm.KERNEL_CHANNELS: every shift conv of BSVD-32, the C=128
+  ones of BSVD-64), the shift-and-concatenate conv elsewhere (BSVD-64's
+  C=256), the plain versions on the CPU.  Training asks for
+  `shift_conv="library"`, which routes every shift conv through the
+  shift-and-concatenate + cuDNN conv that the JAX package computes in
+  XLA on this path: it takes float32 and has a backward, where K1 takes
+  bf16 and has none.
 
 State is a dict of tensors with the JAX package's layout; its frame
 counter "t" is a Python int, so masks and ring offsets are decided on
@@ -35,9 +47,9 @@ from ..ops import tsm_conv as tsm
 from .torch_import import conv_from_torch, conv_to_torch, cpu_state_dict, subdict, to_tensors
 
 __all__ = [
-    "BSVDConfig", "BSVD_32", "SHIFT_NUM", "SHIFT_CONV_ROUTES", "init_params", "from_torch", "to_torch",
-    "from_jax", "init_stream_state", "init_chunk_state", "chunk_step", "ring_to_fifo_state",
-    "state_from_jax", "state_to_numpy",
+    "BSVDConfig", "BSVD_32", "BSVD_64", "SHIFT_NUM", "SHIFT_CONV_ROUTES", "init_params", "from_torch",
+    "to_torch", "from_jax", "apply_single", "init_stream_state", "stream_step", "denoise_clip",
+    "init_chunk_state", "chunk_step", "ring_to_fifo_state", "state_from_jax", "state_to_numpy",
 ]
 
 
@@ -51,13 +63,15 @@ class BSVDConfig(NamedTuple):
 
 
 BSVD_32 = BSVDConfig()
+BSVD_64 = BSVDConfig(chns=(64, 128, 256), mid_ch=64, interm_ch=64)
 
 SHIFT_NUM = 16  # buffered convs in temp1+temp2 == reference count_shift()
 
 # chunk_step's routes for the temporal-shift convs, to the function of
 # ops/tsm_conv.py each takes (looked up at the call): "kernel" = K1's
-# wrapper (the kernel on a CUDA tensor), "library" = its plain version
-# (shift-and-concatenate + conv2d) on any device
+# wrapper (the kernel on a CUDA tensor) at the widths K1 is built for,
+# "library" = its plain version (shift-and-concatenate + conv2d) on any
+# device, which "kernel" also takes at any other width
 SHIFT_CONV_ROUTES = {"kernel": "tsm_conv", "library": "tsm_conv_plain"}
 
 # ring-buffer depths: buffered convs between push and pop inside a DenBlock
@@ -164,6 +178,55 @@ def from_jax(np_params: dict, device: str | torch.device = "cpu") -> dict:
     return to_tensors(np_params, device)
 
 
+# ------------------------------------------------------- single-frame path
+
+
+def _conv(p: dict, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    return conv2d(x, p["w"], p.get("b"), stride=stride, padding=1)
+
+
+def _shift_conv_single(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """A shift conv with empty temporal neighbours: the first 2*fold
+    input channels are zeros."""
+    fold = x.shape[-1] // 8
+    inp = torch.cat([torch.zeros_like(x[..., : 2 * fold]), x[..., 2 * fold :]], dim=-1)
+    return _conv(p, inp)
+
+
+def _denblock_single(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    def a(v):
+        return _act(v, act)
+
+    skip1 = x[..., :3]
+    x0 = a(_conv(p["inc1"], a(_conv(p["inc0"], x))))
+    # down 0 (reference DownBlock: conv/2 -> act -> memconv)
+    x1 = a(_conv(p["down0"], x0, stride=2))
+    x1 = a(_shift_conv_single(p["down0_mem"]["c1"], x1))
+    x1 = a(_shift_conv_single(p["down0_mem"]["c2"], x1))
+    # down 1
+    x2 = a(_conv(p["down1"], x1, stride=2))
+    x2 = a(_shift_conv_single(p["down1_mem"]["c1"], x2))
+    x2 = a(_shift_conv_single(p["down1_mem"]["c2"], x2))
+    # up 2
+    u2 = a(_shift_conv_single(p["up2_mem"]["c1"], x2))
+    u2 = a(_shift_conv_single(p["up2_mem"]["c2"], u2))
+    u2 = pixel_shuffle(_conv(p["up2"], u2), 2)
+    # up 1
+    u1 = a(_shift_conv_single(p["up1_mem"]["c1"], u2 + x1))
+    u1 = a(_shift_conv_single(p["up1_mem"]["c2"], u1))
+    u1 = pixel_shuffle(_conv(p["up1"], u1), 2)
+    # out
+    y = _conv(p["outc1"], a(_conv(p["outc0"], u1 + x0)))
+    return _residual3(y, skip1)
+
+
+def apply_single(params: dict, x: torch.Tensor, *, cfg: BSVDConfig = BSVD_32) -> torch.Tensor:
+    """Denoise one frame as the reference production path does (fresh
+    state and a full flush every call): x (N, H, W, in_ch) ->
+    (N, H, W, out_ch).  H and W must be multiples of 4."""
+    return _denblock_single(params["temp2"], _denblock_single(params["temp1"], x, cfg.act), cfg.act)
+
+
 # ------------------------------------------------------------------ state
 
 
@@ -192,8 +255,10 @@ def init_stream_state(
     n: int, h: int, w: int, cfg: BSVDConfig = BSVD_32,
     dtype: torch.dtype = torch.float32, device: str | torch.device = "cpu",
 ) -> dict:
-    """Fresh streaming state (all buffers zero, t=0).  H and W must be
-    multiples of 4 (two stride-2 stages)."""
+    """Fresh state for stream_step (all buffers zero, t=0), with the JAX
+    package's layout; chunk_step starts from the same zero state
+    (init_chunk_state).  H and W must be multiples of 4 (two stride-2
+    stages)."""
     return {
         "t": 0,
         "temp1": _init_denblock_state(n, h, w, cfg, dtype, device),
@@ -238,6 +303,114 @@ def state_to_numpy(state: dict) -> dict:
     return {"t": np.int32(state["t"]), **{k: conv(state[k]) for k in ("temp1", "temp2")}}
 
 
+# ----------------------------------------------------------- streaming path
+
+
+def _bibuffer_step(p, st, x, t, d, t_end, act):
+    """One shift conv on one frame.  st = {'left': (..., fold), 'center':
+    x-like}; t: the global step; d: this conv's pipeline depth (its first
+    real input arrives at step d); t_end: the end of its real-input
+    window (T + d), or None for an endless stream.  The state takes x
+    from step d on and its fold slice from step d + 1 on, so warm-up
+    garbage never enters it."""
+    fold = x.shape[-1] // 8
+    if t_end is not None and t >= t_end:
+        x = torch.zeros_like(x)
+    inp = torch.cat([x[..., :fold], st["left"], st["center"][..., 2 * fold :]], dim=-1)
+    y = _act(_conv(p, inp), act)
+    new_left = st["center"][..., fold : 2 * fold] if t >= d + 1 else st["left"]
+    new_center = x if t >= d else st["center"]
+    return y, {"left": new_left, "center": new_center}
+
+
+def _mem_step(p, st, x, t, d, t_end, act):
+    y, s1 = _bibuffer_step(p["c1"], st["c1"], x, t, d, t_end, act)
+    y, s2 = _bibuffer_step(p["c2"], st["c2"], y, t, d + 1, None if t_end is None else t_end + 1, act)
+    return y, {"c1": s1, "c2": s2}
+
+
+def _ring_pop_push(buf: torch.Tensor, val: torch.Tensor, t: int):
+    """Read slot t % depth of a ring, then write val there: (popped, new
+    ring).  The new ring is a copy, so the state passed in stays as it
+    was."""
+    slot = t % buf.shape[0]
+    new = buf.clone()
+    new[slot] = val
+    return buf[slot], new
+
+
+def _denblock_step(p, st, x, t, d0, t_end0, act):
+    """One streaming step of a DenBlock.  d0: the depth of its first
+    shift conv; t_end0: that conv's input-window end (or None)."""
+
+    def a(v):
+        return _act(v, act)
+
+    def te(offset):
+        return None if t_end0 is None else t_end0 + offset
+
+    skip1, st_skip1 = _ring_pop_push(st["skip1"], x[..., :3], t)
+    x0 = a(_conv(p["inc1"], a(_conv(p["inc0"], x))))
+    skip2, st_skip2 = _ring_pop_push(st["skip2"], x0, t)
+
+    x1 = a(_conv(p["down0"], x0, stride=2))
+    x1, st_d0 = _mem_step(p["down0_mem"], st["down0"], x1, t, d0, te(0), act)
+    skip3, st_skip3 = _ring_pop_push(st["skip3"], x1, t)
+
+    x2 = a(_conv(p["down1"], x1, stride=2))
+    x2, st_d1 = _mem_step(p["down1_mem"], st["down1"], x2, t, d0 + 2, te(2), act)
+
+    u2, st_u2 = _mem_step(p["up2_mem"], st["up2"], x2, t, d0 + 4, te(4), act)
+    u2 = pixel_shuffle(_conv(p["up2"], u2), 2)
+
+    u1, st_u1 = _mem_step(p["up1_mem"], st["up1"], u2 + skip3, t, d0 + 6, te(6), act)
+    u1 = pixel_shuffle(_conv(p["up1"], u1), 2)
+
+    y = _conv(p["outc1"], a(_conv(p["outc0"], u1 + skip2)))
+    y = _residual3(y, skip1)
+    new_st = {
+        "skip1": st_skip1, "skip2": st_skip2, "skip3": st_skip3,
+        "down0": st_d0, "down1": st_d1, "up2": st_u2, "up1": st_u1,
+    }
+    return y, new_st
+
+
+def stream_step(
+    params: dict,
+    state: dict,
+    x: torch.Tensor,
+    *,
+    cfg: BSVDConfig = BSVD_32,
+    t_end: int | None = None,
+) -> tuple[torch.Tensor, dict]:
+    """Feed one frame (N, H, W, in_ch); returns (y, new_state).  y is the
+    denoised frame from SHIFT_NUM steps ago, valid once state['t'] >=
+    SHIFT_NUM.  Endless live streams leave t_end=None; to flush a
+    T-frame clip, keep stepping with zero frames and t_end=T.  The state
+    (init_stream_state) runs its skip buffers as rings: it must not be
+    moved between stream_step and chunk_step mid-stream."""
+    t = state["t"]
+    mid, st1 = _denblock_step(params["temp1"], state["temp1"], x, t, 0, t_end, cfg.act)
+    y, st2 = _denblock_step(params["temp2"], state["temp2"], mid, t, 8, None if t_end is None else t_end + 8, cfg.act)
+    return y, {"t": t + 1, "temp1": st1, "temp2": st2}
+
+
+def denoise_clip(params: dict, frames: torch.Tensor, *, cfg: BSVDConfig = BSVD_32) -> torch.Tensor:
+    """Denoise a whole clip one frame a step, as the reference's
+    streaming_forward does over the same sequence (model.py:526-580):
+    frames (T, N, H, W, in_ch) -> (T, N, H, W, out_ch).  Runs T +
+    SHIFT_NUM steps (the flush included) and keeps outputs [SHIFT_NUM:)."""
+    t_total, n, h, w, _ = frames.shape
+    state = init_stream_state(n, h, w, cfg, frames.dtype, frames.device)
+    zero = torch.zeros_like(frames[0])
+    outs = []
+    for i in range(t_total + SHIFT_NUM):
+        y, state = stream_step(params, state, frames[i] if i < t_total else zero, cfg=cfg, t_end=t_total)
+        if i >= SHIFT_NUM:
+            outs.append(y)
+    return torch.stack(outs)
+
+
 # ------------------------------------------------------------ chunked path
 
 
@@ -257,11 +430,22 @@ def _window_mask(x: torch.Tensor, first_idx: int, t_end: int | None) -> torch.Te
     return x
 
 
+def _shift_conv_fn(route: str, c: int):
+    """The function of ops/tsm_conv.py that a shift conv of C channels
+    takes on `route`, decided by the width before any launch: "kernel"
+    is K1's wrapper where K1 is built for C (tsm.KERNEL_CHANNELS) and the
+    shift-and-concatenate conv elsewhere, as the JAX package routes every
+    shape that its kernel does not take."""
+    if route == "kernel" and c not in tsm.KERNEL_CHANNELS:
+        return tsm.tsm_conv_plain
+    return getattr(tsm, SHIFT_CONV_ROUTES[route])
+
+
 def _shift_conv_chunk(p: dict, st: dict, x: torch.Tensor, act: str, conv=None):
     """One temporal-shift conv over a chunk x (T, N, H, W, C) with carry
     st = {'left': x_{a-2}[..., fold:2fold], 'center': x_{a-1}}: output j
-    is aligned to frame a-1+j.  `conv` is K1's wrapper or its plain
-    version.  Returns (y, new carry)."""
+    is aligned to frame a-1+j.  `conv` is K1's wrapper (the default) or
+    its plain version.  Returns (y, new carry)."""
     t = x.shape[0]
     fold = x.shape[-1] // 8
     y = (conv or tsm.tsm_conv)(x, st["center"], st["left"], p["w"], p.get("b"), act=act)
@@ -281,13 +465,14 @@ def _pair_chunk(p, st, x, act):
     return y2, {"c1": new_c1, "c2": new_c2}
 
 
-def _mem_chunk(p, st, x, act, first_idx, t_end, warm, tsm_pair, conv):
-    """A mem block's two shift convs through `conv`; cold and flush
-    chunks zero the conv inputs outside each conv's frame window (warm
-    chunks skip it).  tsm_pair runs a warm chunk of T >= 2 frames through
-    K2; cold and flush chunks keep K1, since a window mask lies between
-    their convs."""
-    if warm and tsm_pair and x.shape[0] >= 2:
+def _mem_chunk(p, st, x, act, first_idx, t_end, warm, tsm_pair, route):
+    """A mem block's two shift convs on `route` (_shift_conv_fn); cold and
+    flush chunks zero the conv inputs outside each conv's frame window
+    (warm chunks skip it).  tsm_pair runs a warm chunk of T >= 2 frames
+    on K1's route through K2; cold and flush chunks keep K1, since a
+    window mask lies between their convs."""
+    conv = _shift_conv_fn(route, x.shape[-1])
+    if warm and tsm_pair and x.shape[0] >= 2 and conv is tsm.tsm_conv:
         return _pair_chunk(p, st, x, act)
     if not warm:
         x = _window_mask(x, first_idx, t_end)
@@ -365,7 +550,7 @@ def ring_to_fifo_state(state: dict, cfg: BSVDConfig = BSVD_32) -> dict:
     return {**state, "temp1": fix(state["temp1"]), "temp2": fix(state["temp2"])}
 
 
-def _denblock_chunk(p, st, x, act, base, t_end, warm, tsm_pair, inplace, conv):
+def _denblock_chunk(p, st, x, act, base, t_end, warm, tsm_pair, inplace, route):
     """One DenBlock over a chunk.  x: (T, N, H, W, in_ch) for frames
     [base, base+T); returns output frames [base-8, base+T-8)."""
     rb = base if warm else None  # ring FIFOs on warm steps only
@@ -373,13 +558,13 @@ def _denblock_chunk(p, st, x, act, base, t_end, warm, tsm_pair, inplace, conv):
     x0 = _conv_batched(p["inc1"], _conv_batched(p["inc0"], x, act), act)
     skip2, st_s2, push2 = _fifo(st["skip2"], x0, rb, inplace)
     x1 = _conv_batched(p["down0"], x0, act, stride=2)
-    x1, st_d0 = _mem_chunk(p["down0_mem"], st["down0"], x1, act, base, t_end, warm, tsm_pair, conv)
+    x1, st_d0 = _mem_chunk(p["down0_mem"], st["down0"], x1, act, base, t_end, warm, tsm_pair, route)
     skip3, st_s3, _ = _fifo(st["skip3"], x1)  # x1 frames [base-2, ...)
     x2 = _conv_batched(p["down1"], x1, act, stride=2)
-    x2, st_d1 = _mem_chunk(p["down1_mem"], st["down1"], x2, act, base - 2, t_end, warm, tsm_pair, conv)
-    u2, st_u2 = _mem_chunk(p["up2_mem"], st["up2"], x2, act, base - 4, t_end, warm, tsm_pair, conv)
+    x2, st_d1 = _mem_chunk(p["down1_mem"], st["down1"], x2, act, base - 2, t_end, warm, tsm_pair, route)
+    u2, st_u2 = _mem_chunk(p["up2_mem"], st["up2"], x2, act, base - 4, t_end, warm, tsm_pair, route)
     u2 = _ps_batched(_conv_batched(p["up2"], u2), 2)
-    u1, st_u1 = _mem_chunk(p["up1_mem"], st["up1"], u2 + skip3, act, base - 6, t_end, warm, tsm_pair, conv)
+    u1, st_u1 = _mem_chunk(p["up1_mem"], st["up1"], u2 + skip3, act, base - 6, t_end, warm, tsm_pair, route)
     u1 = _ps_batched(_conv_batched(p["up1"], u1), 2)
     y = _conv_batched(p["outc1"], _conv_batched(p["outc0"], u1 + skip2, act))
     y = _residual3(y, skip1)
@@ -436,19 +621,19 @@ def chunk_step(
 
     shift_conv picks the route of every temporal-shift conv (a key of
     SHIFT_CONV_ROUTES): "kernel", the default of every serving caller,
-    is K1's wrapper, which launches the kernel on a CUDA tensor (bf16
-    only) or raises; "library" is the shift-and-concatenate + conv2d
-    that training asks for (float32, with a backward; tsm_pair is then
-    ignored)."""
+    is K1's wrapper at the widths K1 is built for (C in
+    tsm.KERNEL_CHANNELS), which launches the kernel on a CUDA tensor
+    (bf16 only) or raises, and the shift-and-concatenate conv at any
+    other width (BSVD-64's C=256); "library" is the shift-and-concatenate
+    + conv2d at every width, which training asks for (float32, with a
+    backward; tsm_pair is then ignored)."""
     if warm and t_end is not None:
         raise ValueError("warm chunk_step is live-stream only (t_end=None)")
     if shift_conv not in SHIFT_CONV_ROUTES:
         raise ValueError(f"shift_conv must be one of {sorted(SHIFT_CONV_ROUTES)}, got {shift_conv!r}")
-    conv = getattr(tsm, SHIFT_CONV_ROUTES[shift_conv])
-    tsm_pair = tsm_pair and shift_conv == "kernel"
     n0 = state["t"]
     mid, st1 = _denblock_chunk(params["temp1"], state["temp1"], frames, cfg.act, n0, t_end, warm,
-                               tsm_pair, inplace, conv)
+                               tsm_pair, inplace, shift_conv)
     y, st2 = _denblock_chunk(params["temp2"], state["temp2"], mid, cfg.act, n0 - 8, t_end, warm,
-                             tsm_pair, inplace, conv)
+                             tsm_pair, inplace, shift_conv)
     return y, {"t": n0 + frames.shape[0], "temp1": st1, "temp2": st2}

@@ -21,7 +21,6 @@ through the plain `ops.warp.backward_warp`, which autograd runs through.
 
 from __future__ import annotations
 
-from functools import lru_cache
 from typing import NamedTuple
 
 import numpy as np
@@ -30,6 +29,7 @@ import torch
 from ..ops import conv2d, leaky_relu, max_pool2, pad2d, pixel_shuffle, resize, space_to_depth, upsample_tecogan
 from ..ops.resize import _tecogan_kernels
 from ..ops.warp import backward_warp, backward_warp_fast
+from ..utils.device import device_cache
 from .torch_import import conv_from_torch, conv_to_torch, cpu_state_dict, to_tensors
 
 __all__ = [
@@ -135,22 +135,18 @@ def _fold_conv_out(w: torch.Tensor, b: torch.Tensor, s: int):
     return w_lr, b.repeat_interleave(s * s), d // 2
 
 
-@lru_cache(maxsize=None)
+@device_cache
 def _fold_tables(kh: int, s: int, device: torch.device):
-    """The fold's gather indices and validity mask on `device`, made once:
-    a copy from host memory on every step would make the host wait for
-    the device's queue to drain.  Made outside inference mode, so that
-    autograd may save them (training after inference in one process)."""
+    """The fold's gather indices and validity mask on `device`."""
     off = kh // 2
     dY = np.arange(-(off // s + 1), off // s + 2)  # LR taps that can hit
     a = np.arange(s)
     grid = a[None, :, None] - a[None, None, :] + s * dY[:, None, None]
     valid = np.abs(grid) <= off                     # (D, a, i)
     idx = np.clip(grid + off, 0, kh - 1)
-    with torch.inference_mode(False):
-        iy = torch.from_numpy(idx[:, :, :, None, None, None]).to(device)
-        ix = torch.from_numpy(idx[None, None, None, :, :, :]).to(device)
-        m = torch.from_numpy(valid[:, :, :, None, None, None] & valid[None, None, None]).to(device)
+    iy = torch.from_numpy(idx[:, :, :, None, None, None]).to(device)
+    ix = torch.from_numpy(idx[None, None, None, :, :, :]).to(device)
+    m = torch.from_numpy(valid[:, :, :, None, None, None] & valid[None, None, None]).to(device)
     return iy, ix, m
 
 

@@ -30,7 +30,7 @@ from .torch_import import conv_from_torch, conv_to_torch, cpu_state_dict, prelu_
 
 __all__ = [
     "SRVGGConfig", "GENERAL_X4V3", "ANIMEVIDEO_V3", "init_params", "apply",
-    "apply_down_rational", "from_torch", "from_jax", "to_torch", "check_conv_stack",
+    "apply_down", "apply_down2", "apply_down_rational", "from_torch", "from_jax", "to_torch", "check_conv_stack",
     "resolve_conv_stack", "DEFAULT_CONV_STACK",
 ]
 
@@ -134,6 +134,37 @@ def apply(
     y = pixel_shuffle(y, cfg.upscale)
     h, w = x.shape[-3], x.shape[-2]
     return y + resize(x, (h * cfg.upscale, w * cfg.upscale), "nearest").to(y.dtype)
+
+
+_DOWN = {
+    2: (fe.ps4_bicubic_down2, fe.nearest4_bicubic_down2),
+    3: (fe.ps4_bicubic_down3, fe.nearest4_bicubic_down3),
+    4: (fe.ps4_bicubic_down4, fe.nearest4_bicubic_down4),
+}
+
+
+def apply_down(
+    params: dict, x: torch.Tensor, d: int, *, cfg: SRVGGConfig = GENERAL_X4V3, conv_stack: int = 0,
+) -> torch.Tensor:
+    """Fused epilogue at an integer ratio: x (N, H, W, C) -> (N, 4H/d,
+    4W/d, C), bicubic-d-downscale(apply(params, x)) without making the
+    4x image (ops/fused_epilogue.py).  d=2 deviates on a <=1 px border;
+    d=3 and d=4 are exact.  Requires upscale == 4 and in_ch == out_ch;
+    d=3 needs H, W divisible by 3.  conv_stack as apply."""
+    assert cfg.upscale == 4 and d in _DOWN, (cfg, d)
+    # the fused residual assumes the nearest-up residual of x adds
+    # channel for channel (apply()'s num_in_ch == num_out_ch path)
+    assert cfg.num_in_ch == cfg.num_out_ch, cfg
+    ps, base = _DOWN[d]
+    out = ps(_body(params, x, cfg, conv_stack))
+    return out + base(x).to(out.dtype)
+
+
+def apply_down2(
+    params: dict, x: torch.Tensor, *, cfg: SRVGGConfig = GENERAL_X4V3, conv_stack: int = 0,
+) -> torch.Tensor:
+    """720p->1440p production transform (apply_down with d=2)."""
+    return apply_down(params, x, 2, cfg=cfg, conv_stack=conv_stack)
 
 
 def apply_down_rational(

@@ -1,5 +1,5 @@
-from .nn import conv2d, conv_transpose2d, leaky_relu, max_pool2, pad2d, pixel_shuffle, prelu, relu6, space_to_depth
-from .resize import resize, upsample_tecogan
+from .nn import conv2d, conv_transpose2d, depthwise_conv2d, leaky_relu, max_pool2, pad2d, pixel_shuffle, prelu, relu6, space_to_depth
+from .resize import resize, resize_nchw, upsample_tecogan
 from .warp import backward_warp_ac0
 from .color import (
     blur,
@@ -7,14 +7,15 @@ from .color import (
     global_color_match,
     local_color_match,
     sharpen,
+    sharpen_kernel_2d,
     to_float,
     to_uint8,
     to_yuv420,
 )
 
 __all__ = [
-    "conv2d", "conv_transpose2d", "leaky_relu", "max_pool2", "pad2d", "pixel_shuffle", "prelu", "relu6",
-    "space_to_depth", "resize", "upsample_tecogan", "backward_warp_ac0",
+    "conv2d", "conv_transpose2d", "depthwise_conv2d", "leaky_relu", "max_pool2", "pad2d", "pixel_shuffle", "prelu", "relu6",
+    "space_to_depth", "resize", "resize_nchw", "upsample_tecogan", "backward_warp_ac0",
     "blur", "gaussian_kernel_2d", "global_color_match", "local_color_match",
-    "sharpen", "to_float", "to_uint8", "to_yuv420",
+    "sharpen", "sharpen_kernel_2d", "to_float", "to_uint8", "to_yuv420",
 ]

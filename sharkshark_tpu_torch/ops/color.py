@@ -16,10 +16,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.device import device_cache
 from .resize import resize
 
 __all__ = [
     "gaussian_kernel_2d",
+    "sharpen_kernel_2d",
     "blur",
     "sharpen",
     "global_color_match",
@@ -41,6 +43,17 @@ def gaussian_kernel_2d(kernel_size: int = 3, sigma: float = 0.5) -> np.ndarray:
     return (k / k.sum()).astype(np.float32)
 
 
+@lru_cache(maxsize=None)
+def sharpen_kernel_2d(strength: float = 1.0) -> np.ndarray:
+    """Blend of a 3x3 sharpen stencil with identity, normalized to sum 1,
+    shape (3, 3, 1, 1) (HWI1, for depthwise_conv2d)."""
+    sharp = np.array([[-1, -1, -1], [-1, 9, -1], [-1, -1, -1]], dtype=np.float64)
+    ident = np.array([[0, 0, 0], [0, 1, 0], [0, 0, 0]], dtype=np.float64)
+    k = sharp * strength + (1.0 - strength) * ident
+    k = k / k.sum()
+    return k.astype(np.float32).reshape(3, 3, 1, 1)
+
+
 def _reflect_pad_hw(x: torch.Tensor, p: int) -> torch.Tensor:
     """Reflect-pad (edge excluded, like torch padding_mode='reflect') the
     trailing H, W axes of an (..., H, W, C) tensor by p."""
@@ -52,15 +65,11 @@ def _reflect_pad_hw(x: torch.Tensor, p: int) -> torch.Tensor:
     return x
 
 
-@lru_cache(maxsize=None)
+@device_cache
 def _device_kernel(kernel_size: int, sigma: float, c: int, device: torch.device, dtype: torch.dtype):
-    """The depthwise gaussian weights (c, 1, k, k) on `device`, made once: a
-    copy from host memory on every call would make the host wait for the
-    device's queue to drain.  Made outside inference mode, so that
-    autograd may save it."""
-    with torch.inference_mode(False):
-        k = torch.from_numpy(gaussian_kernel_2d(kernel_size, sigma)).to(device, dtype)
-        return k.expand(c, 1, kernel_size, kernel_size).contiguous()
+    """The depthwise gaussian weights (c, 1, k, k) on `device`."""
+    k = torch.from_numpy(gaussian_kernel_2d(kernel_size, sigma)).to(device, dtype)
+    return k.expand(c, 1, kernel_size, kernel_size).contiguous()
 
 
 def blur(x: torch.Tensor, kernel_size: int = 3, sigma: float = 0.5) -> torch.Tensor:

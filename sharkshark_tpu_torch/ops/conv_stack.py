@@ -7,12 +7,17 @@ Each layer accumulates in float32, adds its bias, applies PReLU with
 per-channel alpha, and rounds once to x's dtype; with bias=None this is
 the Pallas kernel's function exactly.
 
-`fused_conv_stack` runs the plain version for a tensor on the CPU and the
-kernel for a tensor on a CUDA device; on CUDA it launches the kernel or
-raises, it never falls back.  The kernel computes one layer; a call runs
-L layers as L launches of it on the current stream (one C call), so
-`launches` grows by L a call.  `kernel_schedule` reports each launch's
-persistent grid.
+K4 is the operator `torch.ops.sharkshark.conv_stack` (ops/_library.py)
+over the whole stack: its CUDA implementation runs the L layers as L
+launches of the one-layer kernel on the current stream (one C call), its
+CPU implementation is the plain version, and its fake implementation
+gives the output's shape and dtype, so that torch.export can trace a
+caller.  `fused_conv_stack` calls through the operator: the plain
+version for a tensor on the CPU and the kernel for a tensor on a CUDA
+device, where it launches the kernel or raises, it never falls back.
+The operator is inference-only (no backward; the wrapper raises where
+autograd would need one).  `launches` grows by L a call.
+`kernel_schedule` reports each launch's persistent grid.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ import ctypes
 
 import torch
 import torch.nn.functional as F
+
+from . import _library
 
 __all__ = ["fused_conv_stack", "fused_conv_stack_plain", "kernel_schedule", "launches", "CHANNELS", "L_MAX"]
 
@@ -86,6 +93,7 @@ def _kernel_fns():
 
 
 def _launch(x, weights, alphas, bias):
+    """K4's CUDA implementation: the checks, then L launches in one C call."""
     global launches
     n_layers = _check_shapes(x, weights, alphas, bias)
     if n_layers > L_MAX:
@@ -125,6 +133,14 @@ def kernel_schedule(n: int, h: int, w: int, n_layers: int = 1) -> tuple[int, int
     return tiles.value, blocks.value
 
 
+def _op_fake(x, weights, alphas, bias):
+    return x.new_empty(x.shape)
+
+
+_op = _library.define("conv_stack(Tensor x, Tensor weights, Tensor alphas, Tensor? bias) -> Tensor",
+                      cpu=fused_conv_stack_plain, cuda=_launch, fake=_op_fake)
+
+
 def fused_conv_stack(
     x: torch.Tensor,
     weights: torch.Tensor,
@@ -132,11 +148,11 @@ def fused_conv_stack(
     bias: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """L x [3x3 SAME conv + bias + PReLU]; shapes as
-    fused_conv_stack_plain.  A CPU tensor runs the plain version; a CUDA
-    tensor launches the kernel (x bf16, contiguous, any H and W,
-    1 <= L <= L_MAX) or raises."""
-    if x.device.type == "cpu":
-        return fused_conv_stack_plain(x, weights, alphas, bias)
-    if x.device.type != "cuda":
+    fused_conv_stack_plain.  Through the operator: a CPU tensor runs the
+    plain version; a CUDA tensor launches the kernel L times (x bf16,
+    contiguous, any H and W, 1 <= L <= L_MAX) or raises before the first
+    launch.  Inference-only: raises if a tensor requires grad."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_conv_stack: no kernel for device {x.device}")
-    return _launch(x, weights, alphas, bias)
+    _library.refuse_grad("fused_conv_stack", x, weights, alphas, bias)
+    return _op(x, weights, alphas, bias)

@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = [
-    "conv2d", "conv_transpose2d", "prelu", "leaky_relu", "relu6", "pixel_shuffle", "space_to_depth",
+    "conv2d", "conv_transpose2d", "depthwise_conv2d", "prelu", "leaky_relu", "relu6", "pixel_shuffle", "space_to_depth",
     "pad2d", "max_pool2",
 ]
 
@@ -61,6 +61,34 @@ def conv_transpose2d(
         output_padding=output_padding,
     )
     return y.permute(0, 2, 3, 1)
+
+
+def depthwise_conv2d(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    padding: int = 0,
+    pad_mode: str = "zero",
+) -> torch.Tensor:
+    """Depthwise conv; w: (kh, kw, 1, C) or (kh, kw, 1, 1) HWI1, one
+    kernel per channel or one for all.  pad_mode 'reflect' mirrors torch's
+    padding_mode='reflect' of the gaussian blur and sharpen kernels
+    (reference fsrcnn_upscaler.py:47-48,76-80).  Kernels up to 3x3 run
+    as shifted multiply-adds in the JAX package's order (its float32
+    sums), larger ones as a grouped conv."""
+    c = x.shape[-1]
+    if padding > 0:
+        x = pad2d(x, padding, mode=pad_mode)
+    kh, kw = w.shape[0], w.shape[1]
+    if kh * kw <= 9 and w.shape[2] == 1:
+        h_out, w_out = x.shape[-3] - kh + 1, x.shape[-2] - kw + 1
+        acc = None
+        for dy in range(kh):
+            for dx in range(kw):
+                t = x[..., dy : dy + h_out, dx : dx + w_out, :] * w[dy, dx, 0].to(x.dtype)
+                acc = t if acc is None else acc + t
+        return acc
+    w = w.expand(kh, kw, 1, c) if w.shape[-1] != c else w
+    return conv2d(x, w, groups=c)
 
 
 def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:

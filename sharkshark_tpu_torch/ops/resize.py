@@ -18,7 +18,9 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-__all__ = ["resize", "upsample_tecogan"]
+from ..utils.device import device_cache
+
+__all__ = ["resize", "resize_nchw", "upsample_tecogan"]
 
 
 @lru_cache(maxsize=None)
@@ -79,25 +81,20 @@ def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
 _TAPS = {"area": _area_taps, "bilinear": _linear_taps, "bicubic": _cubic_taps}
 
 
-@lru_cache(maxsize=None)
+@device_cache
 def _device_taps(method: str, in_size: int, out_size: int, device: torch.device):
     """The tap table of `method` as tensors on `device`, one (index,
-    weight) pair per tap, made once: a copy from host memory on every call
-    would make the host wait for the device's queue to drain.  Made
-    outside inference mode, so that autograd may save them (a training
-    step after an inference call in one process)."""
+    weight) pair per tap."""
     idx, w = _TAPS[method](in_size, out_size)
-    with torch.inference_mode(False):
-        return tuple(
-            (torch.from_numpy(idx[:, k].copy()).to(device), torch.from_numpy(w[:, k].copy()).to(device))
-            for k in range(idx.shape[1])
-        )
+    return tuple(
+        (torch.from_numpy(idx[:, k].copy()).to(device), torch.from_numpy(w[:, k].copy()).to(device))
+        for k in range(idx.shape[1])
+    )
 
 
-@lru_cache(maxsize=None)
+@device_cache
 def _device_nearest(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
-    with torch.inference_mode(False):  # as _device_taps
-        return torch.from_numpy(_nearest_index(in_size, out_size)).to(device)
+    return torch.from_numpy(_nearest_index(in_size, out_size)).to(device)
 
 
 def _apply_axis(x: torch.Tensor, method: str, out_size: int, axis: int) -> torch.Tensor:
@@ -146,6 +143,11 @@ def resize(x: torch.Tensor, size: tuple[int, int], method: str = "bilinear") -> 
         out = out.to(orig_dtype)
     out = _apply_axis(out, method, out_w, w_axis)
     return out.to(orig_dtype)
+
+
+def resize_nchw(x: torch.Tensor, size: tuple[int, int], method: str = "bilinear") -> torch.Tensor:
+    """resize for NCHW layouts (channels before H, W)."""
+    return torch.movedim(resize(torch.movedim(x, -3, -1), size, method), -1, -3)
 
 
 @lru_cache(maxsize=None)

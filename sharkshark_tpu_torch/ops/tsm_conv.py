@@ -9,10 +9,17 @@ left0 = x_{a-2}[..., fold:2fold] (fold = C/8), output j is
 act(conv3x3_zeropad(m_j) + b), where m_j takes channels [0, fold) from
 x_j, [fold, 2fold) from frame j-2 and [2fold, C) from frame j-1.
 
-`tsm_conv` and `tsm_conv_pair` run the plain version for a tensor on the
-CPU and the kernel for a tensor on a CUDA device; on CUDA they launch the
-kernel or raise, they never fall back.  `launches` counts K1's launches
-(two for each K2 call), `pair_launches` K2's calls.
+K1 is the operator `torch.ops.sharkshark.tsm_conv` (ops/_library.py; x
+always (T, N, H, W, C)): its CUDA implementation launches the kernel, its
+CPU implementation is the plain version, and its fake implementation
+gives the output's shape and dtype, so that torch.export can trace a
+caller.  `tsm_conv` and `tsm_conv_pair` call through the operator: the
+plain version for a tensor on the CPU, the kernel for a tensor on a CUDA
+device, where they launch the kernel or raise; they never fall back.
+The operator is inference-only: the wrappers raise where autograd would
+differentiate through it (the CPU pair runs its plain version, which
+autograd can).  `launches` counts K1's launches (two for each K2 call),
+`pair_launches` K2's calls.
 
 K2 is not a kernel of its own: fusing the pair cannot pay on an H100.
 Holding y1 over each tile's halo costs 1.27x conv1's MACs, which puts a
@@ -27,6 +34,7 @@ import ctypes
 
 import torch
 
+from . import _library
 from .nn import conv2d, relu6
 
 __all__ = [
@@ -127,11 +135,18 @@ def _kernel_fn():
     return _kernel
 
 
-def _run(x, prev1, left0, w, b, act):
-    """One K1 launch on tensors that passed _check, x (T, N, H, W, C)."""
+def _launch(x, prev1, left0, w, b, act):
+    """K1's CUDA implementation: the checks, then one launch on the
+    current stream, x (T, N, H, W, C)."""
     global launches
-    t, n, h, wd, c = x.shape
+    t, n, h, wd, c = _kernel_shape("tsm_conv", x, act)
     dev = x.device
+    w, b = _weights(w, b, c, dev)
+    _check("x", x, (t, n, h, wd, c), dev)
+    _check("prev1", prev1, (n, h, wd, c), dev)
+    _check("left0", left0, (n, h, wd, c // 8), dev)
+    _check("w", w, (3, 3, c, c), dev)
+    _check("b", b, (c,), dev)
     out = torch.empty_like(x)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -143,20 +158,21 @@ def _run(x, prev1, left0, w, b, act):
     return out
 
 
-def _launch(x, prev1, left0, w, b, act):
-    squeeze = x.ndim == 4
-    if squeeze:
-        x, prev1, left0 = x[:, None], prev1[None], left0[None]
-    t, n, h, wd, c = _kernel_shape("tsm_conv", x, act)
-    dev = x.device
-    w, b = _weights(w, b, c, dev)
-    _check("x", x, (t, n, h, wd, c), dev)
-    _check("prev1", prev1, (n, h, wd, c), dev)
-    _check("left0", left0, (n, h, wd, c // 8), dev)
-    _check("w", w, (3, 3, c, c), dev)
-    _check("b", b, (c,), dev)
-    out = _run(x, prev1, left0, w, b, act)
-    return out[:, 0] if squeeze else out
+def _op_cpu(x, prev1, left0, w, b, act):
+    return tsm_conv_plain(x, prev1, left0, w, b, act).contiguous()
+
+
+def _op_fake(x, prev1, left0, w, b, act):
+    return x.new_empty((*x.shape[:-1], w.shape[-1]))
+
+
+_op = _library.define("tsm_conv(Tensor x, Tensor prev1, Tensor left0, Tensor w, Tensor? b, str act) -> Tensor",
+                      cpu=_op_cpu, cuda=_launch, fake=_op_fake)
+
+
+def _check_device(name: str, x: torch.Tensor) -> None:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {x.device}")
 
 
 def kernel_schedule(t: int, n: int, h: int, w: int, c: int) -> tuple[int, int]:
@@ -184,13 +200,16 @@ def tsm_conv(
     act: str = "relu6",
 ) -> torch.Tensor:
     """Temporal-shift 3x3 conv over a chunk; shapes as tsm_conv_plain.
-    A CPU tensor runs the plain version; a CUDA tensor launches the
-    kernel (bf16, contiguous, C in KERNEL_CHANNELS) or raises."""
-    if x.device.type == "cpu":
-        return tsm_conv_plain(x, prev1, left0, w, b, act)
-    if x.device.type != "cuda":
-        raise ValueError(f"tsm_conv: no kernel for device {x.device}")
-    return _launch(x, prev1, left0, w, b, act)
+    Through the operator: a CPU tensor runs the plain version; a CUDA
+    tensor launches the kernel (bf16, contiguous, C in KERNEL_CHANNELS)
+    or raises.  Inference-only: raises if a tensor requires grad."""
+    _check_device("tsm_conv", x)
+    _library.refuse_grad("tsm_conv", x, prev1, left0, w, b)
+    squeeze = x.ndim == 4
+    if squeeze:
+        x, prev1, left0 = x[:, None], prev1[None], left0[None]
+    y = _op(x, prev1, left0, w, b, act)
+    return y[:, 0] if squeeze else y
 
 
 def tsm_conv_pair_plain(
@@ -240,8 +259,8 @@ def _launch_pair(x, prev1_x, left0_x, prev1_y, left0_y, w1, b1, w2, b2, act):
     # y1 is a fresh contiguous tensor, so it passes _check as x did; its
     # last two frames are a view that keeps y1 alive as c2's carry, as the
     # K1 route's carry (a view of y1's last frame) does
-    y1 = _run(x, prev1_x, left0_x, w1, b1, act)
-    y2 = _run(y1, prev1_y, left0_y, w2, b2, act)
+    y1 = _op(x, prev1_x, left0_x, w1, b1, act)
+    y2 = _op(y1, prev1_y, left0_y, w2, b2, act)
     pair_launches += 1
     if squeeze:
         return y2[:, 0], y1[-2:, 0]
@@ -263,10 +282,11 @@ def tsm_conv_pair(
     """A mem block's two temporal-shift convs; shapes and result as
     tsm_conv_pair_plain.  A CPU tensor runs the plain version; a CUDA
     tensor (bf16, contiguous, 16-byte aligned, T >= 2, C in
-    KERNEL_CHANNELS) makes two K1 launches on the current stream, y1
-    then y2, or raises before either."""
+    KERNEL_CHANNELS) makes two K1 launches on the current stream through
+    K1's operator, y1 then y2, or raises before either (also where a
+    tensor requires grad)."""
+    _check_device("tsm_conv_pair", x)
     if x.device.type == "cpu":
         return tsm_conv_pair_plain(x, prev1_x, left0_x, prev1_y, left0_y, w1, b1, w2, b2, act)
-    if x.device.type != "cuda":
-        raise ValueError(f"tsm_conv_pair: no kernel for device {x.device}")
+    _library.refuse_grad("tsm_conv_pair", x, prev1_x, left0_x, prev1_y, left0_y, w1, b1, w2, b2)
     return _launch_pair(x, prev1_x, left0_x, prev1_y, left0_y, w1, b1, w2, b2, act)

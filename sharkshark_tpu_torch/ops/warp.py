@@ -10,9 +10,14 @@ recurrence (counterpart of the JAX package's ops/warp.py).
   (align_corners=False), mapped onto the same sampler.
 - `backward_warp_fast` is the wrapper of K3, the CUDA kernel
   `csrc/backward_warp.cu` (counterpart of the JAX package's Pallas kernel
-  ops/pallas/warp_band.py::banded_backward_warp): a CPU tensor runs the
-  plain version `backward_warp_plain`; a CUDA tensor launches the kernel
-  or raises, it never falls back.  `launches` counts kernel launches.
+  ops/pallas/warp_band.py::banded_backward_warp), which calls the
+  operator `torch.ops.sharkshark.backward_warp` (ops/_library.py): its
+  CPU implementation is the plain version `backward_warp_plain`, its
+  CUDA implementation launches the kernel or raises (it never falls
+  back), and its fake implementation gives the output's shape and
+  dtype, so that torch.export can trace a caller.  The operator is
+  inference-only (no backward; the wrapper raises where autograd would
+  need one).  `launches` counts kernel launches.
 
 Two options ride on the warp: `s2d_out=s` returns
 space_to_depth(warp(x), s) (the layout SRNet consumes), and `skip`, a
@@ -28,6 +33,7 @@ import ctypes
 import numpy as np
 import torch
 
+from . import _library
 from .nn import space_to_depth
 
 __all__ = [
@@ -217,6 +223,24 @@ def _launch(x, flow, s2d_out, skip):
     return out
 
 
+def _op_cpu(x, flow, skip, s2d_out):
+    return backward_warp_plain(x, flow, s2d_out=s2d_out, skip=skip).contiguous()
+
+
+def _op_cuda(x, flow, skip, s2d_out):
+    return _launch(x, flow, s2d_out, skip)
+
+
+def _op_fake(x, flow, skip, s2d_out):
+    n, h, w, c = x.shape
+    s = s2d_out or 1
+    return x.new_empty((n, h // s, w // s, s * s * c))
+
+
+_op = _library.define("backward_warp(Tensor x, Tensor flow, Tensor? skip, int s2d_out) -> Tensor",
+                      cpu=_op_cpu, cuda=_op_cuda, fake=_op_fake)
+
+
 def backward_warp_fast(
     x: torch.Tensor,
     flow: torch.Tensor,
@@ -224,14 +248,14 @@ def backward_warp_fast(
     s2d_out: int = 0,
     skip: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """K3: the warp of backward_warp_plain, any flow, any N, H and W.  A
-    CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    (x and flow float32 or bf16, contiguous and 16-byte aligned, 1 to 4
-    channels, s2d_out 0, 1, 2 or 4) or raises.
+    """K3: the warp of backward_warp_plain, any flow, any N, H and W.
+    Through the operator: a CPU tensor runs the plain version; a CUDA
+    tensor launches the kernel (x and flow float32 or bf16, contiguous
+    and 16-byte aligned, 1 to 4 channels, s2d_out 0, 1, 2 or 4) or
+    raises.  Inference-only: raises if x or flow requires grad.
     The kernel samples at u + dx directly, in float32, and returns x's
     dtype."""
-    if x.device.type == "cpu":
-        return backward_warp_plain(x, flow, s2d_out=s2d_out, skip=skip)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"backward_warp: no kernel for device {x.device}")
-    return _launch(x, flow, s2d_out, skip)
+    _library.refuse_grad("backward_warp_fast", x, flow)
+    return _op(x, flow, skip, s2d_out)

@@ -14,8 +14,9 @@ then
   - kernel_ms: the median of `--reps` CUDA-event timings of one call
     (the wrapper's host work included), as chip_smoke.py times every
     kernel;
-  - device_ms: the same for BATCH calls back to back, divided by BATCH:
-    the device time, with the host's work overlapped;
+  - device_ms: the same for 20 calls back to back, divided by 20:
+    the device time, with the host's work overlapped (bench_tsm_conv's
+    `device_ms`);
   - plain_ms, and library_ms / library_device_ms: F.grid_sample on the
     same x and flow as its normalised grid (one PyTorch call of the same
     function, a yardstick the port never calls), timed both ways;
@@ -29,7 +30,8 @@ script with PYTHONPATH at the other checkout
 it then imports that checkout's `sharkshark_tpu_torch` (it needs only
 `ops/warp.py`'s `backward_warp_fast`, `backward_warp_plain` and
 `launches`, `ops`' `resize` and `space_to_depth`, and
-`tools/bench_tsm_conv.py`'s `time_ms`, `bound` and `PEAK_F32_FLOPS`), and
+`tools/bench_tsm_conv.py`'s `time_ms`, `device_ms`, `bound` and
+`PEAK_F32_FLOPS`), and
 `package` in its output names which one ran.
 """
 
@@ -37,7 +39,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
 import subprocess
 from pathlib import Path
 
@@ -47,14 +48,13 @@ import torch.nn.functional as F
 import sharkshark_tpu_torch
 from sharkshark_tpu_torch.ops import resize, space_to_depth
 from sharkshark_tpu_torch.ops import warp as wp
-from sharkshark_tpu_torch.tools.bench_tsm_conv import PEAK_F32_FLOPS, bound, time_ms
+from sharkshark_tpu_torch.tools.bench_tsm_conv import PEAK_F32_FLOPS, bound, device_ms, time_ms
 
 SHAPE = (1, 2880, 5120, 3)  # EGVSR's HR frame at 720p -> 1440p (lr-level 3)
 # The kernel samples at u + dx, the plain version through the normalised
 # grid, up to ~1e-3 px apart at W = 5120, so a value near a bf16 rounding
 # step may round one ulp (2^-8 below 1.0) the other way: atol of two ulps
 TOL = 2.0**-7
-BATCH = 20  # calls a device_ms timing runs back to back
 FLOPS_PER_VALUE = 15  # the clamps, floors, weights and three lerps, in float32
 
 
@@ -75,24 +75,6 @@ def work(shape: tuple[int, int, int, int] = SHAPE, x_bytes: int = 2, flow_bytes:
     values = n * h * w * c
     nbytes = 2 * values * x_bytes + (0 if skipped else n * h * w * 2 * flow_bytes) + 1
     return (0 if skipped else FLOPS_PER_VALUE * values), nbytes
-
-
-def device_ms(fn, reps: int = 30, batch: int = BATCH) -> float:
-    """Median device time of fn() in ms over `batch` calls back to back
-    between two CUDA events, so that the host's work overlaps the
-    device's."""
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(batch):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / batch)
-    return statistics.median(times)
 
 
 def measure(shape: tuple[int, int, int, int] = SHAPE, reps: int = 30) -> list[dict]:

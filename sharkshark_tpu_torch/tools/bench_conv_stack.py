@@ -6,11 +6,13 @@ GPU at SRVGG's body shape: (4, 720, 1280, 64) bf16, with bias, at L = 1
 
 The kernel against fused_conv_stack_plain (within 0.02 x max(|ref|max,
 1), as the Pallas kernel's test), then the median of `--reps` CUDA-event
-timings (one call per event pair) of the kernel, of the plain version and
-of the layer-by-layer route (cuDNN conv with bias, then PReLU: a yardstick
-here, which the body runs only with conv_stack=0), beside the bound and
-the kernel's share of it.  Timing and bound come from
-tools/bench_tsm_conv.py.  Prints one JSON object (a row per depth), with
+timings of the kernel, of the plain version and of the layer-by-layer
+route (cuDNN conv with bias, then PReLU: a yardstick here, which the body
+runs only with conv_stack=0), one call per event pair (`kernel_ms`,
+`plain_ms`, `library_ms`) and, for the kernel and the layer-by-layer
+route, calls back to back (`device_ms`, `library_device_ms`), beside the
+bound and the kernel's share of it over `device_ms`.  Timing and bound
+come from tools/bench_tsm_conv.py.  Prints one JSON object (a row per depth), with
 the card's name and power limit.  chip_smoke.py runs the same
 measurement (`measure`) at L = 1, 2 and 4.
 
@@ -20,7 +22,8 @@ script with PYTHONPATH at the other checkout
 it then imports that checkout's `sharkshark_tpu_torch` (it needs only
 `ops/conv_stack.py`'s `fused_conv_stack`, `fused_conv_stack_plain` and
 `launches`, `ops`' `conv2d` and `prelu`, and `tools/bench_tsm_conv.py`'s
-`time_ms` and `bound`), and `package` in its output names which one ran.
+`time_ms`, `device_ms` and `bound`), and `package` in its output names
+which one ran.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import torch
 import sharkshark_tpu_torch
 from sharkshark_tpu_torch.ops import conv2d, prelu
 from sharkshark_tpu_torch.ops import conv_stack as cs
-from sharkshark_tpu_torch.tools.bench_tsm_conv import bound, time_ms
+from sharkshark_tpu_torch.tools.bench_tsm_conv import bound, device_ms, time_ms
 
 SHAPE = (4, 720, 1280)  # SRVGG's body at 720p, micro-batch 4
 TOL = 0.02              # x max(|ref|max, 1), as experiments/tests/test_pallas_conv.py
@@ -85,14 +88,17 @@ def measure(n_layers: int = 1, with_bias: bool = True, shape: tuple[int, int, in
             y = prelu(conv2d(y, wt[l], None if b is None else b[l].to(x.dtype), padding=1), a[l])
         return y
 
+    def kernel():
+        return cs.fused_conv_stack(x, wt, a, b)
+
     flops, nbytes = work(shape, n_layers, with_bias)
     row = {"layers": n_layers, "bias": with_bias, "shape": [n, h, w, 64], "launches_per_call": launches,
            "max_abs_err": max_err, "ref_max": scale,
-           "kernel_ms": time_ms(lambda: cs.fused_conv_stack(x, wt, a, b), reps),
+           "kernel_ms": time_ms(kernel, reps), "device_ms": device_ms(kernel, reps),
            "plain_ms": time_ms(lambda: cs.fused_conv_stack_plain(x, wt, a, b), max(reps // 6, 3)),
-           "library_ms": time_ms(layer_by_layer, reps), "flops": flops, "bytes": nbytes,
-           **bound(flops, nbytes)}
-    row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+           "library_ms": time_ms(layer_by_layer, reps), "library_device_ms": device_ms(layer_by_layer, reps),
+           "flops": flops, "bytes": nbytes, **bound(flops, nbytes)}
+    row["bound_share"] = row["bound_ms"] / row["device_ms"]
     return row
 
 

@@ -1,10 +1,11 @@
 """Where the time of the port's warm denoise step goes, on one GPU.
 
     python -m sharkshark_tpu_torch.tools.profile_denoise_step [--iters 5] [--out FILE]
-        [--tsm-pair] [--conv-stack L]
+        [--tsm-pair] [--conv-stack L] [--variant 64]
 
 Runs steps.upscale_batch_denoise at the main path's shapes (720p ->
-1440p, T=4, bf16, the repo's minted SRVGG and BSVD-32 weights) on the
+1440p, T=4, bf16, the repo's minted SRVGG and BSVD-32 weights; with
+--variant 64 BSVD-64 on seeded weights, none being minted) on the
 service's routes (K1 per shift conv, the SRVGG body through K4 one
 layer a launch, the skip rings updated in place; --tsm-pair selects K2,
 --conv-stack L K4's depth, 0 the layer-by-layer body): four cold chunks to
@@ -14,8 +15,9 @@ object with
   - busy_ms: the sum of the device time of the kernels of one step,
   - idle_share: 1 - busy_ms / step_ms,
   - stages: device ms per step under each stage (torch.profiler ranges
-    around bsvd.chunk_step, the temporal-shift convs (K1, K2), the SRVGG
-    body, K4, the fused epilogue, sharpen and color match),
+    around bsvd.chunk_step, the temporal-shift convs (K1, K2, and the
+    shift-and-concatenate conv that BSVD-64's C=256 convs take), the
+    SRVGG body, K4, the fused epilogue, sharpen and color match),
   - launches_per_step: each kernel's launches per warm step,
   - top_kernels: the kernels with the most device time per step,
 and, with --out, writes the same object to FILE.
@@ -63,6 +65,8 @@ def main() -> None:
     ap.add_argument("--tsm-pair", action="store_true", help="BSVD's warm mem blocks through K2")
     ap.add_argument("--conv-stack", type=int, default=srvgg.DEFAULT_CONV_STACK,
                     help="SRVGG body layers per K4 launch (0: layer by layer; default: the service's)")
+    ap.add_argument("--variant", type=int, default=32, choices=(32, 64),
+                    help="BSVD-32 (the minted weights) or BSVD-64 (seeded weights)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_denoise_step: needs a CUDA device")
@@ -76,6 +80,7 @@ def main() -> None:
         (steps.bsvd, "chunk_step", "bsvd.chunk_step"),
         (bsvd.tsm, "tsm_conv", "bsvd.tsm_conv"),
         (bsvd.tsm, "tsm_conv_pair", "bsvd.tsm_conv_pair"),
+        (bsvd.tsm, "tsm_conv_plain", "bsvd.shift_concat_conv"),
         (srvgg, "_body", "srvgg.body"),
         (srvgg.cs, "fused_conv_stack", "srvgg.fused_conv_stack"),
         (fused_epilogue, "ps4_bicubic_down_rational", "srvgg.fused_epilogue"),
@@ -89,9 +94,12 @@ def main() -> None:
 
     spec = steps.UpscaleSpec(lr_shape=(720, 1280), output_shape=(1440, 2560),
                              denoise_rate=0.75, compute_dtype=dtype)
+    cfg = bsvd.BSVD_64 if args.variant == 64 else bsvd.BSVD_32
+    den = (bsvd.init_params(torch.Generator().manual_seed(14), cfg) if args.variant == 64
+           else bsvd.from_torch(torch_import.load_state_dict(str(MINTED / "bsvd-derived-32.pth"))))
     params = torch_import.to_tensors({
         "sr": srvgg.from_torch(torch_import.load_state_dict(str(MINTED / "srvgg-derived-x4.pth"))),
-        "denoise": bsvd.from_torch(torch_import.load_state_dict(str(MINTED / "bsvd-derived-32.pth"))),
+        "denoise": den,
     }, dev, dtype)
 
     def sr_apply(p, x):
@@ -99,12 +107,12 @@ def main() -> None:
 
     rng = np.random.default_rng(0)
     frames = torch.from_numpy(rng.integers(0, 256, (t, 720, 1280, 3), dtype=np.uint8)).to(dev)
-    state = steps.init_denoise_state(1, spec, device=dev)
+    state = steps.init_denoise_state(1, spec, cfg, device=dev)
 
     def step():
         nonlocal state
         out, state = steps.upscale_batch_denoise(
-            sr_apply, params, state, frames, spec, warm=state["t"] >= bsvd.SHIFT_NUM,
+            sr_apply, params, state, frames, spec, cfg, warm=state["t"] >= bsvd.SHIFT_NUM,
             tsm_pair=args.tsm_pair, inplace=True)
         return out
 
@@ -140,7 +148,7 @@ def main() -> None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     res = {
         "card": card, "shape": "720x1280 -> 1440x2560", "batch": t, "iters": args.iters,
-        "tsm_pair": args.tsm_pair, "conv_stack": args.conv_stack,
+        "tsm_pair": args.tsm_pair, "conv_stack": args.conv_stack, "variant": args.variant,
         "step_ms": step_ms, "ms_per_frame": step_ms / t, "busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / step_ms,
         "launches_per_step": {k: v / args.iters for k, v in launches.items()},

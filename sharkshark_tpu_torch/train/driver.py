@@ -8,7 +8,8 @@ with a YAML option tree (configs/*.yml).  It runs on the card unless
 `--device cpu` is given.  The recipes: VSR (FRNet, pixel + warping
 loss), VSRGAN (TecoGAN: FRNet against a spatial or spatio-temporal
 discriminator, selected by a model.discriminator block, e.g.
-configs/tecogan_bd.yml), SISR (SRVGG) and denoise (BSVD-32).  The
+configs/tecogan_bd.yml), SISR (SRVGG) and denoise (BSVD-32, or BSVD-64
+with `model.generator.variant: 64`).  The
 generators: FRNet, srvgg, bsvd, and the variants espnet (per frame),
 vespnet (a window of `depth` frames) and sofnet (3-frame windows, each
 colour channel as its own Y plane).
@@ -122,9 +123,7 @@ def define_generator(opt: dict, device: str | torch.device = "cuda") -> dict:
         # test.noise_sigma
         from .denoise import clip_forward
 
-        if int(g.get("variant", 32)) != 32:
-            raise NotImplementedError("BSVD-64 is not ported yet (ROADMAP.md section 1, item 3)")
-        cfg = bsvd.BSVD_32
+        cfg = bsvd.BSVD_64 if int(g.get("variant", 32)) == 64 else bsvd.BSVD_32
         sigma = float(opt.get("test", {}).get("noise_sigma", 25.0)) / 255.0
 
         def infer(p, lr):

@@ -7,6 +7,7 @@ from .steps import (
     init_denoise_state,
     upscale_batch_denoise,
     upscale_multi,
+    upscale_single_denoise,
 )
 from .tile import tile_upscale
 from .service import (
@@ -18,7 +19,7 @@ from .service import (
 
 __all__ = [
     "LR_LEVELS", "HR_LEVELS", "lr_shape_for_level", "hr_shape_for_level",
-    "UpscaleSpec", "upscale_multi", "upscale_batch_denoise",
+    "UpscaleSpec", "upscale_multi", "upscale_single_denoise", "upscale_batch_denoise",
     "flush_batch_denoise", "init_denoise_state", "egvsr_upscale_step", "egvsr_upscale_chunk",
     "tile_upscale", "UpscalerQueueEntry", "BaseUpscalerService", "EsrganUpscalerService", "EgvsrUpscalerService",
 ]

@@ -36,6 +36,7 @@ from ..ops import (
 __all__ = [
     "UpscaleSpec",
     "upscale_multi",
+    "upscale_single_denoise",
     "init_denoise_state",
     "upscale_batch_denoise",
     "flush_batch_denoise",
@@ -138,6 +139,41 @@ def _noise_value(idx: int, spec: UpscaleSpec, dtype: torch.dtype) -> float:
     to the state dtype."""
     v = 0.05 if idx == 0 else 0.1 * spec.denoise_rate
     return torch.tensor(v, dtype=torch.float32).to(dtype).item()
+
+
+def upscale_single_denoise(
+    sr_apply: Callable[[Any, torch.Tensor], torch.Tensor],
+    params: dict,
+    state: dict,
+    frame: torch.Tensor,
+    spec: UpscaleSpec,
+    cfg: bsvd.BSVDConfig = bsvd.BSVD_32,
+) -> tuple[torch.Tensor, dict]:
+    """Denoise-enabled per-frame path (reference upscale_single,
+    :235-326): the reference's own dataflow, one frame a call through
+    bsvd.stream_step, which launches no kernel.
+
+    frame: (N, H, W, 3) uint8; params: {"sr": ..., "denoise": ...};
+    state: BSVD stream state from init_denoise_state.
+    Returns (out uint8 (N, OH, OW, 3), new_state).
+
+    A constant noise map of 0.1*denoise_rate is the 4th input channel
+    (0.05 on the very first frame, :262,269); the denoised frame, SHIFT_NUM
+    frames behind the current one, is sharpened (2e-5), clamped and
+    blended at 0.8 opacity with the current pre-denoise frame
+    (:279-281); SR runs on the blend, then an HR sharpen (7e-5,
+    :298-299) and the global color match only (:302-313).  The LR frame
+    is edge-padded to the /4 state size for BSVD and cropped back."""
+    img = to_float(frame)
+    lr = resize(img, spec.lr_shape, "area")
+    lr_before = lr
+    state_dtype = state["temp1"]["skip1"].dtype
+    lr_p = _bsvd_pad(lr, spec)
+    noise = torch.full(lr_p.shape[:3] + (1,), _noise_value(state["t"], spec, state_dtype),
+                       dtype=state_dtype, device=lr.device)
+    x4 = torch.cat([lr_p.to(state_dtype), noise], dim=-1)
+    den, new_state = bsvd.stream_step(params["denoise"], state, x4, cfg=cfg)
+    return _denoise_postproc(sr_apply, params, den, lr, lr_before, spec), new_state
 
 
 def upscale_batch_denoise(

@@ -20,6 +20,8 @@ from sharkshark_tpu.upscale import steps as jsteps
 from sharkshark_tpu.upscale.service import EsrganUpscalerService as JService
 from sharkshark_tpu.upscale.service import UpscalerQueueEntry as JEntry
 from sharkshark_tpu_torch.models import bsvd, srvgg
+from sharkshark_tpu_torch.ops import conv_stack as cs
+from sharkshark_tpu_torch.ops import tsm_conv as tsm
 from sharkshark_tpu_torch.runtime import EOF
 from sharkshark_tpu_torch.upscale import steps
 from sharkshark_tpu_torch.upscale.service import EsrganUpscalerService, UpscalerQueueEntry
@@ -28,6 +30,10 @@ TINY_SRVGG_J = jsrvgg.SRVGGConfig(num_feat=16, num_conv=2)
 TINY_SRVGG = srvgg.SRVGGConfig(num_feat=16, num_conv=2)
 TINY_BSVD_J = jbsvd.BSVDConfig(chns=(8, 16, 24))
 TINY_BSVD = bsvd.BSVDConfig(chns=(8, 16, 24))
+# the mem blocks' shift convs at K1's widths, where chunk_step takes the
+# kernel route (and with tsm_pair the pair on warm chunks)
+PAIR_BSVD_J = jbsvd.BSVDConfig(chns=(8, *tsm.KERNEL_CHANNELS))
+PAIR_BSVD = bsvd.BSVDConfig(chns=(8, *tsm.KERNEL_CHANNELS))
 
 
 def _np(tree):
@@ -125,8 +131,8 @@ def _conv_sd(prefix, i, o, rng):
     }
 
 
-def _write_tiny_weights(tmp_path, sr_cfg=TINY_SRVGG):
-    """Tiny SRVGG (sr_cfg's widths) and BSVD checkpoints in the reference
+def _write_tiny_weights(tmp_path, sr_cfg=TINY_SRVGG, bsvd_cfg=TINY_BSVD):
+    """Tiny SRVGG (sr_cfg's widths) and BSVD (bsvd_cfg's) checkpoints in the reference
     key layout, so both services load the same weights through their own
     from_torch."""
     rng = np.random.default_rng(2)
@@ -139,12 +145,12 @@ def _write_tiny_weights(tmp_path, sr_cfg=TINY_SRVGG):
     sr_path = tmp_path / "srvgg-tiny.pth"
     torch.save({"params": {k: torch.from_numpy(v) for k, v in sd.items()}}, sr_path)
 
-    c0, c1, c2 = TINY_BSVD.chns
+    c0, c1, c2 = bsvd_cfg.chns
     sd = {}
-    for net, (cin, cout) in enumerate([(4, TINY_BSVD.mid_ch), (TINY_BSVD.mid_ch, 3)]):
+    for net, (cin, cout) in enumerate([(4, bsvd_cfg.mid_ch), (bsvd_cfg.mid_ch, 3)]):
         p = f"base_model.nets_list.{net}."
         for name, i, o in [
-            ("inc.convblock.0.", cin, TINY_BSVD.interm_ch), ("inc.convblock.3.", TINY_BSVD.interm_ch, c0),
+            ("inc.convblock.0.", cin, bsvd_cfg.interm_ch), ("inc.convblock.3.", bsvd_cfg.interm_ch, c0),
             ("downc0.convblock.0.", c0, c1), ("downc1.convblock.0.", c1, c2),
             ("upc2.convblock.1.", c2, 4 * c1), ("upc1.convblock.1.", c1, 4 * c0),
             ("outc.convblock.0.", c0, c0), ("outc.convblock.3.", c0, cout),
@@ -193,22 +199,39 @@ def test_service_matches_jax_service(tmp_path):
     _assert_u8_close(got, want)
 
 
-def test_service_routes_match_jax_service(tmp_path):
+def test_service_routes_match_jax_service(tmp_path, monkeypatch):
     """The whole denoise service with both kernel routes on (K2 on warm
     chunks, K4 over the SRVGG body two layers a launch; their plain
-    versions on the CPU) against the JAX service's XLA route."""
+    versions on the CPU) against the JAX service's XLA route.  The mem
+    blocks run at K1's widths, and the pair and K4 wrappers must be
+    called."""
+    calls = {"pair": 0, "conv_stack": 0}
+
+    def counting(name, mod, attr):
+        fn = getattr(mod, attr)
+
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+
+        monkeypatch.setattr(mod, attr, wrapped)
+
+    counting("pair", tsm, "tsm_conv_pair")
+    counting("conv_stack", cs, "fused_conv_stack")
     sr_j, sr_t = jsrvgg.SRVGGConfig(num_feat=64, num_conv=3), srvgg.SRVGGConfig(num_feat=64, num_conv=3)
-    sr_w, den_w = _write_tiny_weights(tmp_path, sr_t)
+    sr_w, den_w = _write_tiny_weights(tmp_path, sr_t, PAIR_BSVD)
     kw = dict(lr_level=0, denoising=True, denoise_rate=0.75, batch_size=4,
               output_shape=(48, 80), weights=sr_w, denoise_weights=den_w)
-    jsvc = JService(compute_dtype=jnp.float32, srvgg_cfg=sr_j, bsvd_cfg=TINY_BSVD_J, **kw)
-    tsvc = EsrganUpscalerService(compute_dtype=torch.float32, srvgg_cfg=sr_t, bsvd_cfg=TINY_BSVD,
+    jsvc = JService(compute_dtype=jnp.float32, srvgg_cfg=sr_j, bsvd_cfg=PAIR_BSVD_J, **kw)
+    tsvc = EsrganUpscalerService(compute_dtype=torch.float32, srvgg_cfg=sr_t, bsvd_cfg=PAIR_BSVD,
                                  device="cpu", tsm_pair=True, conv_stack=2, **kw)
     jsvc.lr_shape = tsvc.lr_shape = (24, 40)
     rng = np.random.default_rng(4)
     # 4 cold micro-batches, then 2 warm ones, then the drain
     jobs = [rng.integers(0, 256, (4, 24, 40, 3), dtype=np.uint8) for _ in range(6)]
     got = _drive(tsvc, UpscalerQueueEntry, EOF, jobs)
+    # the two warm chunks' 8 mem-block pairs each
+    assert calls["pair"] == 16 and calls["conv_stack"] > 0, calls
     want = _drive(jsvc, JEntry, JEOF, jobs)
     assert got.shape == (24 + 16, 48, 80, 3)
     _assert_u8_close(got, want)

@@ -32,7 +32,7 @@ from sharkshark_tpu.train import driver as jdriver
 from sharkshark_tpu.train import metrics as jmetrics
 from sharkshark_tpu.train import model_summary as jmodel_summary
 from sharkshark_tpu.utils import env as jenv
-from sharkshark_tpu_torch.models import egvsr
+from sharkshark_tpu_torch.models import bsvd, egvsr
 from sharkshark_tpu_torch.tools import make_derived_dataset as mdd
 from sharkshark_tpu_torch.train import checkpoint, datasets, driver, metrics, model_summary, vsr
 from sharkshark_tpu_torch.utils import env
@@ -539,12 +539,12 @@ def test_driver_test_mode_matches_the_jax_driver(derived, tmp_path):
 
 
 def test_driver_refuses_what_is_not_ported(derived):
-    """BSVD-64 is the one name still to port (ROADMAP.md section 1, item
-    3).  A GAN config and the espnet / vespnet / sofnet generators are
-    ported; the variants have no training recipe (the JAX driver trains
-    FRNet under their names) and say so."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        driver.define_generator(_config(derived, "bsvd", variant=64), device="cpu")
+    """Every generator name is ported: BSVD-64 (`variant: 64`) builds, as
+    do a GAN config and the espnet / vespnet / sofnet generators; the
+    variants have no training recipe (the JAX driver trains FRNet under
+    their names) and say so."""
+    assert driver.define_generator(_config(derived, "bsvd", variant=64), device="cpu")["cfg"] == bsvd.BSVD_64
+    assert driver.build_training(_config(derived, "bsvd", variant=64), device="cpu").cfg.model_cfg == bsvd.BSVD_64
     opt = _config(derived, "frnet", nf=16, nb=2)
     opt["model"]["discriminator"] = {"name": "STNet"}
     assert type(driver.build_training(opt, device="cpu").state).__name__ == "GANTrainState"

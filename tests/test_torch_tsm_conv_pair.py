@@ -24,8 +24,11 @@ from sharkshark_tpu_torch.models import bsvd
 from sharkshark_tpu_torch.ops import _build
 from sharkshark_tpu_torch.ops import tsm_conv as tsm
 
-TINY_BSVD_J = jbsvd.BSVDConfig(chns=(8, 16, 24))
-TINY_BSVD = bsvd.BSVDConfig(chns=(8, 16, 24))
+# the mem blocks' shift convs at K1's widths, where chunk_step takes the
+# kernel route (any other width takes the shift-and-concatenate conv,
+# which has no pair)
+PAIR_BSVD_J = jbsvd.BSVDConfig(chns=(8, *tsm.KERNEL_CHANNELS))
+PAIR_BSVD = bsvd.BSVDConfig(chns=(8, *tsm.KERNEL_CHANNELS))
 
 
 def _mk(t, h, w, c, seed):
@@ -81,33 +84,51 @@ def _close(got, want, path):
         np.testing.assert_allclose(g, np.asarray(want), rtol=0, atol=1e-4, err_msg=path)
 
 
-def test_chunk_step_pair_route_matches_k1_route_and_jax():
+def _counting(monkeypatch, calls, name, attr):
+    """Count the calls of tsm.<attr> under calls[name]."""
+    fn = getattr(tsm, attr)
+
+    def wrapped(*a, **k):
+        calls[name] += 1
+        return fn(*a, **k)
+
+    monkeypatch.setattr(tsm, attr, wrapped)
+
+
+def test_chunk_step_pair_route_matches_k1_route_and_jax(monkeypatch):
     """cold -> warm -> ring_to_fifo_state -> flush, float32, the same
     frames through chunk_step(tsm_pair=True), chunk_step(tsm_pair=False)
-    and the JAX chunk_step; outputs and whole states after every step."""
+    and the JAX chunk_step; outputs and whole states after every step.
+    The pair route must call the pair wrapper on every warm chunk."""
+    calls = {"pair": 0}
+    _counting(monkeypatch, calls, "pair", "tsm_conv_pair")
     h, w, t = 16, 24, 4
-    jp = jax.jit(jbsvd.init_params, static_argnums=1)(jax.random.PRNGKey(5), TINY_BSVD_J)
+    jp = jax.jit(jbsvd.init_params, static_argnums=1)(jax.random.PRNGKey(5), PAIR_BSVD_J)
     tp = bsvd.from_jax(_np(jp))
-    frames = np.random.default_rng(6).random((24, 1, h, w, TINY_BSVD.in_ch)).astype(np.float32)
+    frames = np.random.default_rng(6).random((24, 1, h, w, PAIR_BSVD.in_ch)).astype(np.float32)
     j_chunk = jax.jit(jbsvd.chunk_step, static_argnames=("cfg", "warm"))
-    js = jbsvd.init_stream_state(1, h, w, TINY_BSVD_J)
-    pair = k1 = bsvd.init_stream_state(1, h, w, TINY_BSVD)
+    js = jbsvd.init_stream_state(1, h, w, PAIR_BSVD_J)
+    pair = k1 = bsvd.init_stream_state(1, h, w, PAIR_BSVD)
     for i in range(0, 24, t):
         warm = i >= bsvd.SHIFT_NUM
         x = frames[i : i + t]
-        jy, js = j_chunk(jp, js, jnp.asarray(x), cfg=TINY_BSVD_J, warm=warm)
-        py, pair = bsvd.chunk_step(tp, pair, torch.from_numpy(x), cfg=TINY_BSVD, warm=warm, tsm_pair=True)
-        ky, k1 = bsvd.chunk_step(tp, k1, torch.from_numpy(x), cfg=TINY_BSVD, warm=warm)
+        jy, js = j_chunk(jp, js, jnp.asarray(x), cfg=PAIR_BSVD_J, warm=warm)
+        before = calls["pair"]
+        py, pair = bsvd.chunk_step(tp, pair, torch.from_numpy(x), cfg=PAIR_BSVD, warm=warm, tsm_pair=True)
+        assert calls["pair"] - before == (8 if warm else 0), (i, calls)
+        ky, k1 = bsvd.chunk_step(tp, k1, torch.from_numpy(x), cfg=PAIR_BSVD, warm=warm)
+        assert calls["pair"] - before == (8 if warm else 0), "the K1 route called the pair wrapper"
         _close(py, jy, f"y@{i}")
         _close(py, ky.numpy(), f"y vs K1 route@{i}")
         _close(bsvd.state_to_numpy(pair), _np(js), f"state@{i}")
         _close(bsvd.state_to_numpy(pair), bsvd.state_to_numpy(k1), f"state vs K1 route@{i}")
-    js = jbsvd.ring_to_fifo_state(js, TINY_BSVD_J)
-    pair = bsvd.ring_to_fifo_state(pair, TINY_BSVD)
-    zeros = np.zeros((t, 1, h, w, TINY_BSVD.in_ch), np.float32)
+    assert calls["pair"] == 8 * (24 - bsvd.SHIFT_NUM) // t
+    js = jbsvd.ring_to_fifo_state(js, PAIR_BSVD_J)
+    pair = bsvd.ring_to_fifo_state(pair, PAIR_BSVD)
+    zeros = np.zeros((t, 1, h, w, PAIR_BSVD.in_ch), np.float32)
     for i in range(bsvd.SHIFT_NUM // t):
-        jy, js = j_chunk(jp, js, jnp.asarray(zeros), cfg=TINY_BSVD_J, t_end=24)
-        py, pair = bsvd.chunk_step(tp, pair, torch.from_numpy(zeros), cfg=TINY_BSVD, t_end=24,
+        jy, js = j_chunk(jp, js, jnp.asarray(zeros), cfg=PAIR_BSVD_J, t_end=24)
+        py, pair = bsvd.chunk_step(tp, pair, torch.from_numpy(zeros), cfg=PAIR_BSVD, t_end=24,
                                    tsm_pair=True)
         _close(py, jy, f"flush y@{i}")
     _close(bsvd.state_to_numpy(pair), _np(js), "flushed")
@@ -115,24 +136,18 @@ def test_chunk_step_pair_route_matches_k1_route_and_jax():
 
 def test_pair_route_launches_k2_only_on_warm_chunks(monkeypatch):
     """A warm T=4 chunk calls the pair wrapper 8 times and K1's none; a
-    cold chunk and a warm T=1 chunk keep K1 (16 calls per chunk)."""
+    cold chunk and a warm T=1 chunk keep K1 (16 calls per chunk).  The
+    shift convs run at K1's widths (chunk_step routes any other width to
+    the shift-and-concatenate conv, which has no pair)."""
     calls = {"pair": 0, "single": 0}
-    pair, single = tsm.tsm_conv_pair, tsm.tsm_conv
-
-    def count(name, fn):
-        def wrapped(*a, **k):
-            calls[name] += 1
-            return fn(*a, **k)
-        return wrapped
-
-    monkeypatch.setattr(tsm, "tsm_conv_pair", count("pair", pair))
-    monkeypatch.setattr(tsm, "tsm_conv", count("single", single))
-    tp = bsvd.init_params(torch.Generator().manual_seed(0), TINY_BSVD)
-    st = bsvd.init_stream_state(1, 8, 8, TINY_BSVD)
+    _counting(monkeypatch, calls, "pair", "tsm_conv_pair")
+    _counting(monkeypatch, calls, "single", "tsm_conv")
+    tp = bsvd.init_params(torch.Generator().manual_seed(0), PAIR_BSVD)
+    st = bsvd.init_stream_state(1, 8, 8, PAIR_BSVD)
     x = torch.rand((4, 1, 8, 8, 4))
     for warm, frames, want in ((False, x, (0, 16)), (True, x, (8, 0)), (True, x[:1], (0, 16))):
         calls.update(pair=0, single=0)
-        bsvd.chunk_step(tp, st, frames, cfg=TINY_BSVD, warm=warm, tsm_pair=True)
+        bsvd.chunk_step(tp, st, frames, cfg=PAIR_BSVD, warm=warm, tsm_pair=True)
         assert (calls["pair"], calls["single"]) == want, (warm, frames.shape, calls)
 
 
