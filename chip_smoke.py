@@ -118,9 +118,28 @@ Phases (any failure exits non-zero, and nothing is caught):
      through K4 against the layer-by-layer body; tools/export_model.py
      for srvgg and egvsr at 1x360x640x3, reloaded, against eager, with
      the K4 and K3 launches counted through the reloaded program;
+ 15. the multi-device serving paths (parallel/) at full width, 720p ->
+     1440p, bf16, minted weights, on meshes of the cards where two or more
+     are visible and of cuda:0 repeated otherwise (the bands then run one
+     after another): the denoise service on a 1x4 mesh over 48 frames and
+     the drain against the single-device service (PSNR >= 40 dB, 16 K1
+     and 32 K4 launches a chunk on each band, by device too, ms/frame and
+     peak memory per device), the SR-only service on a 2x2 mesh against
+     one device, the EGVSR service on a 1x4 mesh against phase 6's
+     single-device run (no K3 launch: the sharded step warps by the plain
+     gather), the CLI with --mesh 1,S (S the cards present, up to 4; 1,1
+     on one card, still through the sharded factories) with its exact
+     bytes, and, with two or more cards, K1 and K4 against their plain
+     versions on each card;
 then one JSON line of kernel numbers, the card's name and power limit,
 and the result line last.  Exits 2 without a result when CUDA is
 unavailable or the script stands outside the repo checkout.
+
+    python3 chip_smoke.py --mesh-only
+
+runs phases 1, 2, phase 6's per-frame EGVSR service and phase 15 alone
+(on a machine with several cards: the bands on distinct cards), prints
+their JSON and the card line, and no result line.
 """
 
 from __future__ import annotations
@@ -291,9 +310,9 @@ def check_backward_warp(bench_warp) -> list[dict]:
 # --------------------------------------------------------------- phase 4
 
 
-def make_frames(n: int, h: int, w: int, seed: int) -> np.ndarray:
-    """A smooth random scene panning 3 px right and 1 px down per frame,
-    with fresh sensor noise on every frame."""
+def make_frames(n: int, h: int, w: int, seed: int, pan: int = 3) -> np.ndarray:
+    """A smooth random scene panning `pan` px right and 1 px down per
+    frame (up to 128 px in all), with fresh sensor noise on every frame."""
     rng = np.random.default_rng(seed)
     coarse = rng.random((h // 16 + 8, w // 16 + 8, 3), dtype=np.float32)
     scene = torch.nn.functional.interpolate(
@@ -301,7 +320,7 @@ def make_frames(n: int, h: int, w: int, seed: int) -> np.ndarray:
         align_corners=False)[0].permute(1, 2, 0).numpy()
     out = np.empty((n, h, w, 3), np.uint8)
     for i in range(n):
-        view = scene[i : i + h, 3 * i : 3 * i + w]
+        view = scene[i : i + h, pan * i : pan * i + w]
         noisy = view * 200 + 28 + rng.normal(0, 6, view.shape)
         out[i] = np.clip(noisy, 0, 255).astype(np.uint8)
     return out
@@ -315,6 +334,13 @@ class Counters:
 
     def reset(self) -> None:
         self.tsm.launches = self.tsm.pair_launches = self.wp.launches = self.cs.launches = 0
+        self.tsm.launches_by_device.clear()
+        self.cs.launches_by_device.clear()
+
+    def by_device(self) -> dict:
+        """K1's and K4's launches by CUDA device index."""
+        return {"tsm_conv": dict(self.tsm.launches_by_device),
+                "fused_conv_stack": dict(self.cs.launches_by_device)}
 
     def read(self) -> dict:
         return {"tsm_conv": self.tsm.launches, "tsm_conv_pair": self.tsm.pair_launches,
@@ -2349,6 +2375,270 @@ def run_bsvd64_phase(service_mod, counters, bench, tsm, card: str, main_out: np.
     return res
 
 
+# -------------------------------------------------------------- phase 15
+
+
+def mesh_devices(n: int) -> list:
+    """n mesh devices: the cards in turn where there are two or more, else
+    cuda:0 n times (the bands then run one after another on one card)."""
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", i % count if count >= 2 else 0) for i in range(n)]
+
+
+@contextlib.contextmanager
+def kernel_shapes(tsm, cs):
+    """The shapes of K1's and K4's calls on a card while the block runs
+    (the steps call both through their modules): K1's (C, H, W) at T = 4,
+    K4's (N, H, W)."""
+    k1, k4 = tsm.tsm_conv, cs.fused_conv_stack
+    shapes = {"tsm_conv": set(), "fused_conv_stack": set()}
+
+    def rec_k1(x, *args, **kw):
+        if x.device.type == "cuda":
+            shapes["tsm_conv"].add((x.shape[-1], x.shape[-3], x.shape[-2]))
+        return k1(x, *args, **kw)
+
+    def rec_k4(x, *args, **kw):
+        if x.device.type == "cuda":
+            shapes["fused_conv_stack"].add(tuple(x.shape[:3]))
+        return k4(x, *args, **kw)
+
+    tsm.tsm_conv, cs.fused_conv_stack = rec_k1, rec_k4
+    try:
+        yield shapes
+    finally:
+        tsm.tsm_conv, cs.fused_conv_stack = k1, k4
+
+
+def check_band_shapes(bench, bench_cs, shapes: dict, card: str) -> dict:
+    """K1 and K4 against their plain versions (and timed) at every shape
+    phase 15's denoise and SR-only services gave them: the bands' widths,
+    which no other phase runs, and the whole frame's of the one-device
+    runs beside them."""
+    rows = {"tsm_conv": [], "fused_conv_stack": []}
+    for c, h, w in sorted(shapes["tsm_conv"]):
+        row = bench.measure(c, h, w, reps=5)
+        rows["tsm_conv"].append({k: row[k] for k in ("c", "h", "w", "max_abs_err", "kernel_ms", "device_ms",
+                                                     "plain_ms", "bound_ms", "bound_by")})
+        log(f"tsm_conv at a band's C={c} {h}x{w} T=4: max|err| {row['max_abs_err']:.4g} (rtol=atol={bench.TOL}); "
+            f"{row['device_ms']:.4f} ms back to back, plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} "
+            f"ms on {card}")
+    for shape in sorted(shapes["fused_conv_stack"]):
+        row = bench_cs.measure(1, True, shape=shape, reps=5)
+        rows["fused_conv_stack"].append({k: row[k] for k in ("shape", "max_abs_err", "ref_max", "kernel_ms",
+                                                              "device_ms", "plain_ms", "bound_ms", "bound_by")})
+        log(f"fused_conv_stack at a band's {tuple(row['shape'])}: max|err| {row['max_abs_err']:.4g} (limit "
+            f"{bench_cs.TOL * max(row['ref_max'], 1.0):.4g}); {row['device_ms']:.4f} ms back to back, plain "
+            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms on {card}")
+        assert row["max_abs_err"] <= bench_cs.TOL * max(row["ref_max"], 1.0), row
+    return rows
+
+
+def run_mesh_service(service_mod, counters, card: str, name: str, make, frames: np.ndarray, batch: int,
+                     devices: list) -> tuple[dict, np.ndarray]:
+    """One service built by make() over `frames` in micro-batches, driven
+    as the live pipeline drives it: its frames (the EOF drain's included),
+    launches (K1's and K4's by device too), wall time, the spacing of its
+    deliveries, the host's time in each dispatch (enqueueing the step,
+    which waits for a device only where a copy must) and the peak memory
+    of each device."""
+    svc = make()
+    svc.proc_init()
+    host_s = []
+    dispatch = svc.upscale_dispatch
+
+    def timed(batch_frames):
+        t = time.perf_counter()
+        out = dispatch(batch_frames)
+        host_s.append(time.perf_counter() - t)
+        return out
+
+    svc.upscale_dispatch = timed
+    torch.cuda.synchronize()
+    for d in sorted({d.index for d in devices}):
+        torch.cuda.reset_peak_memory_stats(d)
+    counters.reset()
+    t0 = time.perf_counter()
+    got, stamps, _ = drive(svc, service_mod.UpscalerQueueEntry,
+                           [frames[i : i + batch] for i in range(0, len(frames), batch)])
+    wall = time.perf_counter() - t0
+    out = np.concatenate([np.asarray(e.frames) for e in got])
+    res = {"run": name, "frames": len(out), "launches": counters.read(), "launches_by_device": counters.by_device(),
+           "wall_s": wall, "stamps": stamps, "dispatch_ms": [v * 1e3 for v in host_s],
+           "peak_mem_gb_by_device": {d: torch.cuda.max_memory_allocated(d) / 1e9
+                                     for d in sorted({d.index for d in devices})}}
+    assert out.dtype == np.uint8 and out.shape[1:] == (1440, 2560, 3), (out.dtype, out.shape)
+    log(f"{name}: {len(out)} frames of 1440x2560x3 uint8, launches {res['launches']}, by device "
+        f"{res['launches_by_device']}, wall {wall:.3f} s, peak memory by device "
+        + ", ".join(f"cuda:{d} {v:.3f} GB" for d, v in res["peak_mem_gb_by_device"].items()) + f" on {card}")
+    return res, out
+
+
+def run_mesh_denoise(service_mod, counters, card: str, n: int = 48, batch: int = 4) -> dict:
+    """The denoise service (minted SRVGG general-x4v3 + BSVD-32, 720p ->
+    1440p, bf16) on a 1x4 mesh and on one device over the same n frames
+    and the EOF drain: PSNR >= 40 dB between them, 16 K1 and 32 K4
+    launches a chunk on each band, and the warm step's ms/frame of each."""
+    from sharkshark_tpu_torch.models import bsvd
+    from sharkshark_tpu_torch.parallel import make_mesh
+
+    devices = mesh_devices(4)
+    mesh = make_mesh(devices=devices, spatial=4)
+    frames = make_frames(n, 720, 1280, seed=29, pan=2)
+    kw = dict(lr_level=3, output_shape=(1440, 2560), denoising=True, denoise_rate=0.75, batch_size=batch,
+              weights=str(MINTED / "srvgg-derived-x4.pth"), denoise_weights=str(MINTED / "bsvd-derived-32.pth"))
+    runs = {}
+    for name, extra in (("denoise service, mesh 1x4", {"mesh": mesh}), ("denoise service, one device", {})):
+        res, out = run_mesh_service(service_mod, counters, card, name,
+                                    lambda: service_mod.EsrganUpscalerService(**kw, **extra), frames, batch, devices)
+        jobs, first_warm = n // batch, bsvd.SHIFT_NUM // batch
+        stamps = res.pop("stamps")
+        res["warm_ms_per_frame"] = (stamps[jobs - 1] - stamps[first_warm - 1]) / ((jobs - first_warm) * batch) * 1e3
+        res["warm_dispatch_ms_per_frame"] = statistics.median(res["dispatch_ms"][first_warm:jobs]) / batch
+        assert len(out) == n + min(n, bsvd.SHIFT_NUM), f"{name}: {len(out)} frames, expected the drain too"
+        runs[name] = (res, out)
+    (mres, mout), (sres, sout) = runs.values()
+    bands = 4  # 1280 LR columns in bands of 320
+    chunks = n // batch + bsvd.SHIFT_NUM // batch
+    want = {"tsm_conv": 16 * chunks * bands, "tsm_conv_pair": 0, "backward_warp": 0,
+            "fused_conv_stack": 32 * chunks * bands}
+    assert mres["launches"] == want, f"mesh denoise launches {mres['launches']}, expected {want}"
+    per_dev = {}
+    for d in devices:
+        per_dev[d.index] = per_dev.get(d.index, 0) + 16 * chunks
+    assert mres["launches_by_device"]["tsm_conv"] == per_dev, mres["launches_by_device"]
+    value = psnr(mout, sout)
+    log(f"denoise service, mesh 1x4 on {[str(d) for d in devices]} against one device: PSNR {value:.3f} dB "
+        f"(min 40); warm step {mres['warm_ms_per_frame']:.3f} ms/frame sharded, "
+        f"{sres['warm_ms_per_frame']:.3f} one device; the host's dispatch of a warm chunk "
+        f"{mres['warm_dispatch_ms_per_frame']:.3f} ms/frame sharded, {sres['warm_dispatch_ms_per_frame']:.3f} "
+        f"one device; per band and chunk 16 K1 and 32 K4 ({bands} bands, "
+        f"{chunks} chunks) on {card}")
+    assert value >= 40.0, "the sharded denoise service disagrees with the single-device one"
+    return {"mesh": mres, "one_device": sres, "psnr_db": value, "bands": bands, "chunks": chunks,
+            "devices": [str(d) for d in devices]}
+
+
+def run_mesh_sr(service_mod, counters, card: str, jobs: int = 8, batch: int = 4) -> dict:
+    """The SR-only service on a 2x2 mesh (batch over 'data', W over
+    'spatial') against one device: 8 micro-batches of 4, PSNR >= 40 dB,
+    32 K4 launches a band and call (2 x 2 bands a call)."""
+    from sharkshark_tpu_torch.parallel import make_mesh
+
+    devices = mesh_devices(4)
+    mesh = make_mesh(devices=devices, data=2, spatial=2)
+    frames = make_frames(jobs * batch, 720, 1280, seed=31)
+    kw = dict(lr_level=3, output_shape=(1440, 2560), denoising=False, batch_size=batch,
+              weights=str(MINTED / "srvgg-derived-x4.pth"))
+    (mres, mout), (sres, sout) = (
+        run_mesh_service(service_mod, counters, card, name, lambda: service_mod.EsrganUpscalerService(**kw, **extra),
+                         frames, batch, devices)
+        for name, extra in (("SR-only service, mesh 2x2", {"mesh": mesh}), ("SR-only service, one device", {})))
+    for res in (mres, sres):
+        stamps = res.pop("stamps")
+        res["ms_per_frame"] = (stamps[-1] - stamps[0]) / ((jobs - 1) * batch) * 1e3
+        res["dispatch_ms_per_frame"] = statistics.median(res["dispatch_ms"][1:]) / batch
+    want = {"tsm_conv": 0, "tsm_conv_pair": 0, "backward_warp": 0, "fused_conv_stack": 32 * jobs * 4}
+    assert mres["launches"] == want, f"mesh SR-only launches {mres['launches']}, expected {want}"
+    value = psnr(mout, sout)
+    log(f"SR-only service, mesh 2x2 against one device: PSNR {value:.3f} dB (min 40); "
+        f"{mres['ms_per_frame']:.3f} ms/frame sharded, {sres['ms_per_frame']:.3f} one device; the host's "
+        f"dispatch {mres['dispatch_ms_per_frame']:.3f} / {sres['dispatch_ms_per_frame']:.3f} ms/frame on {card}")
+    assert value >= 40.0, "the sharded SR-only service disagrees with the single-device one"
+    return {"mesh": mres, "one_device": sres, "psnr_db": value}
+
+
+def run_mesh_egvsr(service_mod, counters, card: str, one_device: dict, one_out: np.ndarray, jobs: int = 6,
+                   batch: int = 4) -> dict:
+    """The EGVSR service (minted FRNet) on a 1x4 mesh over phase 6's 24
+    frames, against phase 6's single-device run: PSNR >= 40 dB, and no K3
+    launch (the sharded step warps by the plain gather)."""
+    from sharkshark_tpu_torch.parallel import make_mesh
+
+    devices = mesh_devices(4)
+    mesh = make_mesh(devices=devices, spatial=4)
+    frames = make_frames(jobs * batch, 720, 1280, seed=13)
+    res, out = run_mesh_service(
+        service_mod, counters, card, "EGVSR service, mesh 1x4",
+        lambda: service_mod.EgvsrUpscalerService(lr_level=3, output_shape=(1440, 2560),
+                                                 weights=str(MINTED / "egvsr-derived-x4.pth"), mesh=mesh),
+        frames, batch, devices)
+    stamps = res.pop("stamps")
+    res["ms_per_frame"] = (stamps[jobs - 1] - stamps[0]) / ((jobs - 1) * batch) * 1e3
+    res["dispatch_ms_per_frame"] = statistics.median(res["dispatch_ms"][1:]) / batch
+    assert res["launches"] == {"tsm_conv": 0, "tsm_conv_pair": 0, "backward_warp": 0, "fused_conv_stack": 0}, \
+        f"the sharded EGVSR path launched {res['launches']}"
+    value = psnr(out, one_out)
+    log(f"EGVSR service, mesh 1x4 against one device (K3): PSNR {value:.3f} dB (min 40); backward_warp "
+        f"launches {res['launches']['backward_warp']}; {res['ms_per_frame']:.3f} ms/frame sharded (the host's "
+        f"dispatch {res['dispatch_ms_per_frame']:.3f}), {one_device['ms_per_frame']:.3f} one device on {card}")
+    assert value >= 40.0, "the sharded EGVSR service disagrees with the single-device one"
+    return {"mesh": res, "psnr_db": value, "one_device_ms_per_frame": one_device["ms_per_frame"]}
+
+
+def check_kernels_on_every_card(tsm, cs, card: str) -> list[dict]:
+    """K1 (C = 64, 128) and K4 against their plain versions on each card,
+    each card's first launch included: the shared-memory opt-in is made
+    once a device.  Needs two or more cards."""
+    rows = []
+    for i in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", i)
+        g = torch.Generator(device=dev).manual_seed(i)
+        errs = {}
+        for c, (h, w) in ((64, (360, 640)), (128, (180, 320))):
+            x = torch.randn((4, 1, h, w, c), generator=g, device=dev).to(torch.bfloat16)
+            prev = torch.randn((1, h, w, c), generator=g, device=dev).to(torch.bfloat16)
+            left = torch.randn((1, h, w, c // 8), generator=g, device=dev).to(torch.bfloat16)
+            wt = (torch.randn((3, 3, c, c), generator=g, device=dev) * 0.05).to(torch.bfloat16)
+            b = (torch.randn((c,), generator=g, device=dev) * 0.1).to(torch.bfloat16)
+            got = tsm.tsm_conv(x, prev, left, wt, b, act="relu6").float()
+            ref = tsm.tsm_conv_plain(x, prev, left, wt, b, act="relu6").float()
+            errs[f"k1_c{c}"] = (got - ref).abs().max().item() / max(ref.abs().max().item(), 1.0)
+        x = torch.randn((4, 720, 1280, 64), generator=g, device=dev).to(torch.bfloat16)
+        wt = (torch.randn((1, 3, 3, 64, 64), generator=g, device=dev) * 0.05).to(torch.bfloat16)
+        a, b = torch.full((1, 64), 0.25, device=dev), torch.randn((1, 64), generator=g, device=dev) * 0.1
+        got, ref = cs.fused_conv_stack(x, wt, a, b).float(), cs.fused_conv_stack_plain(x, wt, a, b).float()
+        errs["k4"] = (got - ref).abs().max().item() / max(ref.abs().max().item(), 1.0)
+        log(f"cuda:{i} ({torch.cuda.get_device_name(i)}): K1 and K4 against their plain versions, "
+            f"max error / max |ref|: {errs} (max 0.05)")
+        assert max(errs.values()) <= 0.05, f"a kernel disagrees on cuda:{i}: {errs}"
+        rows.append({"device": i, **errs})
+    return rows
+
+
+def run_mesh_phase(service_mod, counters, tsm, cs, bench, bench_cs, card: str, defaults: dict, egvsr_res: dict,
+                   egvsr_out: np.ndarray) -> dict:
+    """Phase 15: the sharded serving paths at full width, on the cards
+    (two or more) or on cuda:0 repeated, K1 and K4 against their plain
+    versions at the bands' shapes, and the CLI with --mesh."""
+    t_phase = time.perf_counter()
+    count = torch.cuda.device_count()
+    log(f"phase 15 mesh devices: {[str(d) for d in mesh_devices(4)]} ({count} card(s) visible; "
+        + ("the bands run on distinct cards" if count >= 2 else "the four bands run one after another on one card")
+        + ")")
+    if count >= 2:
+        peers = {f"{i}->{j}": torch.cuda.can_device_access_peer(i, j)
+                 for i in range(count) for j in range(count) if i != j}
+        log(f"peer access between the cards: {peers}")
+    with kernel_shapes(tsm, cs) as shapes:
+        res = {"cards": count, "denoise": run_mesh_denoise(service_mod, counters, card),
+               "sr_only": run_mesh_sr(service_mod, counters, card)}
+    res["band_kernels"] = check_band_shapes(bench, bench_cs, shapes, card)
+    res["egvsr"] = run_mesh_egvsr(service_mod, counters, card, egvsr_res, egvsr_out)
+    spatial = min(count, 4) if count >= 2 else 1
+    n = 24
+    want = {k: v * spatial for k, v in denoise_launches(4, n // 4 - 4, 4, **defaults).items()}
+    res["cli"] = run_cli(counters, card, [(
+        f"realesrgan+denoise --mesh 1,{spatial}",
+        ["--weights", str(MINTED / "srvgg-derived-x4.pth"), "--denoise-weights", str(MINTED / "bsvd-derived-32.pth"),
+         "--mesh", f"1,{spatial}"], n + min(n, 16), want)], n)
+    res["per_card"] = check_kernels_on_every_card(tsm, cs, card) if count >= 2 else None
+    if count < 2:
+        log("one card visible: K1 and K4 on a second card, and peer copies between cards, are not measured here")
+    res["wall_s"] = time.perf_counter() - t_phase
+    return res
+
+
 def get_bytes(url: str) -> bytes:
     import urllib.request
 
@@ -2421,6 +2711,15 @@ def main() -> int:
         for line in logs[name].splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+
+    if "--mesh-only" in sys.argv[1:]:
+        egvsr_res, egvsr_out = run_egvsr_path(service_mod, counters, card)
+        mesh_res = run_mesh_phase(service_mod, counters, tsm, cs, bench, bench_cs, card, defaults, egvsr_res,
+                                  egvsr_out)
+        log(f"phase 15 took {mesh_res['wall_s']:.1f} s")
+        log(json.dumps({"mesh": mesh_res}))
+        log(card)
+        return 0
 
     # 3. kernels against their plain versions
     rows = [check_tsm_conv(tsm, bench, 64, 360, 640), check_tsm_conv(tsm, bench, 128, 180, 320)]
@@ -2500,6 +2799,13 @@ def main() -> int:
     log(f"phase 14 took {bsvd64_res['wall_s']:.1f} s")
     log(json.dumps({"bsvd64_single_epilogues_export": bsvd64_res}))
 
+    # 15. the sharded serving paths (parallel/): the denoise, SR-only and
+    # EGVSR services on meshes, the CLI with --mesh, K1 and K4 on each card
+    mesh_res = run_mesh_phase(service_mod, counters, tsm, cs, bench, bench_cs, card, defaults, egvsr_res,
+                                  egvsr_out)
+    log(f"phase 15 took {mesh_res['wall_s']:.1f} s")
+    log(json.dumps({"mesh": mesh_res}))
+
     # the kernels line: launches from the main path's run, or, for a route
     # that is off by default, from the run with the routes on
     stack_row = next(r for r in stack_rows if r["layers"] == stack_l and r["bias"])
@@ -2529,6 +2835,14 @@ def main() -> int:
     kernels[3]["launches_image_service"] = image_res["k4_launches"]
     kernels[2]["launches_train_test"] = train_res["frnet"]["test_launches"]["backward_warp"]
     kernels[2]["launches_gan_test"] = gan_res["gan"]["test"]["launches"]["backward_warp"]
+    # the sharded paths of phase 15: every band's launches, by device too
+    mesh_den = mesh_res["denoise"]["mesh"]
+    kernels[0]["launches_sharded_denoise"] = mesh_den["launches"]["tsm_conv"]
+    kernels[0]["launches_sharded_denoise_by_device"] = mesh_den["launches_by_device"]["tsm_conv"]
+    kernels[3]["launches_sharded_denoise"] = mesh_den["launches"]["fused_conv_stack"]
+    kernels[3]["launches_sharded_denoise_by_device"] = mesh_den["launches_by_device"]["fused_conv_stack"]
+    kernels[3]["launches_sharded_sr"] = mesh_res["sr_only"]["mesh"]["launches"]["fused_conv_stack"]
+    kernels[2]["launches_sharded_egvsr"] = mesh_res["egvsr"]["mesh"]["launches"]["backward_warp"]
     for k in kernels:
         assert k["launches"] > 0, f"{k['name']} was not launched on its path"
     log(json.dumps({"defaults": defaults, "routes_on": routes_on, "route_timing": route_rows,

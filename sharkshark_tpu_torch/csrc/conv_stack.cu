@@ -462,15 +462,20 @@ cudaError_t launch(const void* x, const void* w, const void* bias, const void* a
     if (L > 1 && (!encode(fn, &to_out.x, scratch, W, H, N, HW, HH) || !encode(fn, &to_scratch.x, out, W, H, N, HW, HH) ||
                   !encode(fn, &to_scratch.out, scratch, W, H, N, TW, TH)))
         return cudaErrorNotSupported;
-    // above 48 KB a block needs the opt-in, once per process
-    static bool configured = false;
-    if (!configured) {
-        cudaError_t err = cudaFuncSetAttribute(conv_one_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    // above 48 KB a block needs the opt-in, once per device: the attribute
+    // belongs to the current device's context
+    constexpr int MAX_DEVICES = 64;
+    static bool configured[MAX_DEVICES] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev >= MAX_DEVICES || !configured[dev]) {
+        err = cudaFuncSetAttribute(conv_one_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
         if (err != cudaSuccess) return err;
-        configured = true;
+        if (dev < MAX_DEVICES) configured[dev] = true;
     }
     int tiles_x, per_image, tiles, blocks;
-    cudaError_t err = schedule(N, H, W, &tiles_x, &per_image, &tiles, &blocks);
+    err = schedule(N, H, W, &tiles_x, &per_image, &tiles, &blocks);
     if (err != cudaSuccess) return err;
     for (int l = 0; l < L; ++l) {
         // layer L-1 writes out, L-2 scratch, L-3 out...; each reads what the

@@ -562,16 +562,20 @@ cudaError_t launch(const void* x, const void* prev1, const void* left0, const vo
         !encode(fn, &maps.lF, left0, S::FOLD, W, H, N, S::F_BOX, hw, hh) ||
         !encode(fn, &maps.out, out, C, W, H, T * N, NB, S::TW, S::TH))
         return cudaErrorNotSupported;
-    // above 48 KB a block needs the opt-in, once per process and kernel
-    static bool configured = false;
-    if (!configured) {
-        cudaError_t err = cudaFuncSetAttribute(
-            tsm_conv_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+    // above 48 KB a block needs the opt-in, once per device and kernel: the
+    // attribute belongs to the current device's context
+    constexpr int MAX_DEVICES = 64;
+    static bool configured[MAX_DEVICES] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev >= MAX_DEVICES || !configured[dev]) {
+        err = cudaFuncSetAttribute(tsm_conv_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
         if (err != cudaSuccess) return err;
-        configured = true;
+        if (dev < MAX_DEVICES) configured[dev] = true;
     }
     int tiles_x, tiles, blocks;
-    cudaError_t err = schedule<C>(T, N, H, W, &tiles_x, &tiles, &blocks);
+    err = schedule<C>(T, N, H, W, &tiles_x, &tiles, &blocks);
     if (err != cudaSuccess) return err;
     tsm_conv_kernel<C><<<blocks, THREADS, S::SMEM, stream>>>(
         maps, static_cast<const __nv_bfloat16*>(w), static_cast<const __nv_bfloat16*>(b), N, act,

@@ -9,7 +9,9 @@ The JAX package's flags (reference src/main/upscaler.py:5-42: --quality
 cuda; cpu runs the plain PyTorch path) and --no-overlay (no text
 overlays, so the stream layer never needs cv2).  --model takes
 'realesrgan' (SRVGG with the BSVD denoiser), 'fsrcnn', 'egvsr' or any
-model zoo name (models/zoo.py); --mesh is not ported yet (ROADMAP.md).
+model zoo name (models/zoo.py).  --mesh D,S runs the upscaler on a
+D x S mesh (parallel/): D x S distinct cards with --device cuda, the CPU
+repeated D x S times with --device cpu.
 """
 
 from __future__ import annotations
@@ -54,12 +56,37 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--reconnects", type=int, default=0,
                    help="rebuild the stream source up to N times on EOF")
     p.add_argument("--mesh", default=None, metavar="DATA,SPATIAL",
-                   help="multi-device mesh: not ported yet")
+                   help="multi-device mesh, e.g. '2,2' = batch over 2 devices x "
+                        "width over 2 (SR path), or '1,2' = width over 2 (what "
+                        "the temporally-coupled denoise/EGVSR paths use; they "
+                        "split W over every device). Needs DATA*SPATIAL cards "
+                        "with --device cuda")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="where the upscaler runs (cpu: the plain PyTorch path)")
+                   help="where the upscaler runs (cpu: the plain PyTorch path); "
+                        "with --mesh, the kind of device the mesh is built on")
     p.add_argument("--no-overlay", action="store_true",
                    help="no text overlays on the captured and streamed frames")
     return p
+
+
+def parse_mesh(arg: str, device: str = "cuda"):
+    """'D,S' (or a bare device count, all data) -> parallel.Mesh: D x S
+    distinct CUDA devices (raises when the host has fewer), or for
+    device 'cpu' the CPU repeated D x S times."""
+    import torch
+
+    from ..parallel import make_mesh
+
+    parts = [int(v) for v in str(arg).split(",")]
+    if len(parts) == 1:
+        data, spatial = parts[0], 1
+    elif len(parts) == 2:
+        data, spatial = parts
+    else:
+        raise ValueError(f"--mesh wants 'DATA,SPATIAL', got {arg!r}")
+    n = data * spatial
+    devices = [torch.device("cpu")] * n if device == "cpu" else None
+    return make_mesh(n, data=data, spatial=spatial, devices=devices)
 
 
 def main(argv=None) -> None:
@@ -70,13 +97,14 @@ def main(argv=None) -> None:
     known = {"realesrgan", "fsrcnn", "egvsr"} | set(ZOO)
     if args.model not in known:
         parser.error(f"--model {args.model!r} unknown; choose from {sorted(known)}")
-    if args.mesh:
-        parser.error("--mesh is not ported to the PyTorch port yet (ROADMAP.md: multi-device)")
-
     from ..pipeline import UpscalePipeline
     from ..utils import resolve_device
 
     resolve_device(args.device)
+    try:
+        mesh = parse_mesh(args.mesh, args.device) if args.mesh else None
+    except ValueError as ex:
+        parser.error(f"--mesh {args.mesh}: {ex}")
     kwargs = {}
     if args.model == "egvsr":
         from ..upscale.levels import HR_LEVELS
@@ -88,6 +116,7 @@ def main(argv=None) -> None:
             weights=args.weights,
             pix_fmt=args.pix_fmt,
             device=args.device,
+            mesh=mesh,
         )
     else:
         kwargs.update(
@@ -95,6 +124,7 @@ def main(argv=None) -> None:
             weights=args.weights,
             weights_wdn=args.weights_wdn,
             denoise_weights=args.denoise_weights,
+            mesh=mesh,
         )
 
     if args.reconnects:

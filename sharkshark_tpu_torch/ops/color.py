@@ -113,10 +113,15 @@ def _chan_stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return mean, torch.sqrt(var)
 
 
-def global_color_match(hr: torch.Tensor, ref_lr: torch.Tensor) -> torch.Tensor:
-    """hr' = (hr - mu_hr) / (std_hr + 1e-8) * std_ref + mu_ref, per channel."""
-    hr_mean, hr_std = _chan_stats(hr)
-    ref_mean, ref_std = _chan_stats(ref_lr)
+def global_color_match(hr: torch.Tensor, ref_lr: torch.Tensor, stats=None) -> torch.Tensor:
+    """hr' = (hr - mu_hr) / (std_hr + 1e-8) * std_ref + mu_ref, per channel.
+    stats: (mu_hr, std_hr, mu_ref, std_ref), each (N, 1, 1, C) float32,
+    where the caller computed them over whole frames of which hr and
+    ref_lr are parts (the width-sharded steps, parallel/sharded.py);
+    None computes them from hr and ref_lr."""
+    if stats is None:
+        stats = (*_chan_stats(hr), *_chan_stats(ref_lr))
+    hr_mean, hr_std, ref_mean, ref_std = stats
     out = (hr.float() - hr_mean) / (hr_std + 1e-8)
     return (out * ref_std + ref_mean).to(hr.dtype)
 
@@ -127,14 +132,18 @@ def local_color_match(
     match_factor: int = 8,
     blur_kernel_size: int = 17,
     blur_sigma: float = 8.0,
+    full_hw: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """Subtract the low-frequency color drift of `hr` relative to `ref_lr`
     (area-down by match_factor, gaussian blur, bilinear-up difference).
-    Identity when the pyramid would be smaller than the blur support."""
+    Identity when the pyramid would be smaller than the blur support.
+    full_hw: the HR size of the whole frame when hr is a band of its
+    columns (the width-sharded steps), which decides the identity test."""
     h, w = hr.shape[-3], hr.shape[-2]
-    small = (h // match_factor, w // match_factor)
-    if not (small[0] > blur_kernel_size // 2 and h > 64 and w > 64):
+    fh, fw = full_hw or (h, w)
+    if not (fh // match_factor > blur_kernel_size // 2 and fh > 64 and fw > 64):
         return hr
+    small = (h // match_factor, w // match_factor)
     lr_small = resize(ref_lr, small, "area")
     hr_small = resize(hr, small, "area")
     lr_blur = blur(lr_small, blur_kernel_size, blur_sigma)

@@ -16,7 +16,8 @@ caller.  `fused_conv_stack` calls through the operator: the plain
 version for a tensor on the CPU and the kernel for a tensor on a CUDA
 device, where it launches the kernel or raises, it never falls back.
 The operator is inference-only (no backward; the wrapper raises where
-autograd would need one).  `launches` grows by L a call.
+autograd would need one).  `launches` grows by L a call, and
+`launches_by_device` by L at the CUDA device index.
 `kernel_schedule` reports each launch's persistent grid.
 """
 
@@ -29,10 +30,12 @@ import torch.nn.functional as F
 
 from . import _library
 
-__all__ = ["fused_conv_stack", "fused_conv_stack_plain", "kernel_schedule", "launches", "CHANNELS", "L_MAX"]
+__all__ = ["fused_conv_stack", "fused_conv_stack_plain", "kernel_schedule", "launches", "launches_by_device",
+           "CHANNELS", "L_MAX"]
 
 # kernel launches since import (or since a caller last reset it)
 launches = 0
+launches_by_device: dict[int, int] = {}
 
 CHANNELS = 64
 # the deepest stack a call takes: the depths SRVGG's `conv_stack` and the
@@ -118,6 +121,7 @@ def _launch(x, weights, alphas, bias):
     if err:
         raise RuntimeError(f"fused_conv_stack: CUDA kernel launch failed with cudaError_t {err}")
     launches += n_layers
+    launches_by_device[dev.index] = launches_by_device.get(dev.index, 0) + n_layers
     return out
 
 

@@ -19,7 +19,8 @@ device, where they launch the kernel or raise; they never fall back.
 The operator is inference-only: the wrappers raise where autograd would
 differentiate through it (the CPU pair runs its plain version, which
 autograd can).  `launches` counts K1's launches (two for each K2 call),
-`pair_launches` K2's calls.
+`launches_by_device` the same by CUDA device index, `pair_launches`
+K2's calls.
 
 K2 is not a kernel of its own: fusing the pair cannot pay on an H100.
 Holding y1 over each tile's halo costs 1.27x conv1's MACs, which puts a
@@ -39,11 +40,12 @@ from .nn import conv2d, relu6
 
 __all__ = [
     "tsm_conv", "tsm_conv_plain", "tsm_conv_pair", "tsm_conv_pair_plain",
-    "kernel_schedule", "launches", "pair_launches", "KERNEL_CHANNELS",
+    "kernel_schedule", "launches", "launches_by_device", "pair_launches", "KERNEL_CHANNELS",
 ]
 
 # kernel launches since import (or since a caller last reset them)
 launches = 0
+launches_by_device: dict[int, int] = {}
 pair_launches = 0
 
 KERNEL_CHANNELS = (64, 128)
@@ -155,6 +157,7 @@ def _launch(x, prev1, left0, w, b, act):
     if err:
         raise RuntimeError(f"tsm_conv: CUDA kernel launch failed with cudaError_t {err}")
     launches += 1
+    launches_by_device[dev.index] = launches_by_device.get(dev.index, 0) + 1
     return out
 
 

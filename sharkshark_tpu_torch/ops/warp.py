@@ -39,6 +39,7 @@ from .nn import space_to_depth
 __all__ = [
     "grid_sample_bilinear",
     "backward_warp",
+    "backward_warp_columns",
     "backward_warp_ac0",
     "backward_warp_plain",
     "backward_warp_fast",
@@ -114,8 +115,16 @@ def backward_warp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Warp `x` backward along `flow` (both NHWC; flow has C=2 = (dx, dy)
     in pixels): x sampled at (u + dx, v + dy), through the normalised grid
     as the JAX package builds it."""
+    return backward_warp_columns(x, flow, 0)
+
+
+def backward_warp_columns(x: torch.Tensor, flow: torch.Tensor, col0: int) -> torch.Tensor:
+    """backward_warp's columns [col0, col0 + W') of the whole frame x, for
+    the flow of those columns (N, H, W', 2): the same sampling, in the
+    frame's own coordinates and clamped at its borders (a width-sharded
+    step warps its band of columns from the gathered previous frame)."""
     n, h, w, _ = x.shape
-    iu = _linspace(w, x.device)[None, None, :]
+    iu = _linspace(w, x.device)[col0 : col0 + flow.shape[-2]][None, None, :]
     iv = _linspace(h, x.device)[None, :, None]
     gx = iu + flow[..., 0].float() * _recip((w - 1.0) / 2.0)
     gy = iv + flow[..., 1].float() * _recip((h - 1.0) / 2.0)

@@ -13,7 +13,8 @@ Differences from the reference: stages are threads in one process (no
 CUDA shared memory / torch.mp — see runtime.service), frames cross stages
 as numpy arrays, and EOF is a real sentinel that drains the pipe (the
 reference left this as a TODO, pipeline.py:76).  `device` goes to the
-default upscaler service ('cuda' unless the caller asks for 'cpu');
+default upscaler service ('cuda' unless the caller asks for 'cpu'; with
+a `mesh=` among the upscaler's keywords, the mesh's kind);
 `overlay=False` turns off the recoder's and streamer's text overlays,
 the only place besides a host resize where the stream layer needs cv2.
 """

@@ -13,6 +13,15 @@
   egvsr_upscaler.py:145-212), one FRNet step per frame (or one batched
   chunk per micro-batch), its HR warp through the K3 kernel.
 
+Both take `mesh=` (parallel.make_mesh), whose devices are of the kind
+`device=` names: every device step then runs through the sharded
+factories of parallel/sharded.py, the SR-only micro-batch over "data"
+and W over "spatial", the denoise chunk (cold and warm), its EOF flush
+and the EGVSR step with W over every device of the mesh.  Frames go to the
+factories as host tensors and are uploaded band by band; the outputs
+come back whole on the mesh's first device and leave through the same
+host copy.
+
 On the GPU a dispatch enqueues the step on the current CUDA stream, then
 a non_blocking copy of the result into pinned host memory and an event;
 the fetch waits on that event only.  Tail micro-batches are padded to
@@ -88,13 +97,28 @@ class _HostCopy:
         return self.host.numpy()
 
 
-def _to_device(device: torch.device, frames: np.ndarray) -> torch.Tensor:
+def _to_device(device: torch.device | None, frames: np.ndarray) -> torch.Tensor:
     """Upload frames without waiting: a copy from pinned host memory is
-    queued on the stream like any kernel."""
+    queued on the stream like any kernel.  device None keeps them on the
+    host (a mesh's factories upload each band themselves)."""
     host = torch.from_numpy(np.ascontiguousarray(frames))
-    if device.type != "cuda":
+    if device is None or device.type != "cuda":
         return host
     return host.pin_memory().to(device, non_blocking=True)
+
+
+def _resolve(device, mesh) -> torch.device:
+    """The device that holds the weights: `device`, or with a mesh its
+    first device; a mesh names its own devices, so `device` then names
+    only their kind and must agree with it."""
+    dev = torch.device(device)
+    if mesh is not None:
+        kinds = {d.type for d in mesh.device_list}
+        if kinds != {dev.type}:
+            raise ValueError(f"device {str(device)!r} and a mesh of {sorted(kinds)} devices exclude each "
+                             "other: with a mesh, device names only the mesh's kind")
+        dev = mesh.device_list[0]
+    return resolve_device(dev)
 
 
 class BaseUpscalerService(BaseService):
@@ -240,7 +264,10 @@ class EsrganUpscalerService(BaseUpscalerService):
     `weights` file that is named but absent raises.
 
     device: 'cuda' (default) or 'cpu'; a CUDA device on a host without
-    CUDA raises here, at construction.  tsm_pair: BSVD's warm mem blocks
+    CUDA raises here, at construction.  mesh: a parallel.Mesh of devices
+    of that kind, which routes every step through the sharded factories
+    (the SR-only batch must then divide by its data axis; tsm_pair stays
+    a single-device route).  tsm_pair: BSVD's warm mem blocks
     through K2's wrapper (bsvd.chunk_step), which makes the same two K1
     launches as the default route; off by default.  conv_stack: the SRVGG
     body of the model that runs (srvgg_cfg, or a zoo entry's config)
@@ -274,12 +301,21 @@ class EsrganUpscalerService(BaseUpscalerService):
         tsm_pair: bool = False,
         conv_stack: int | None = None,
         coalesce_max: int = 1,
+        mesh=None,
     ) -> None:
         super().__init__(name="EsrganUpscaler")
         if upscaler_model not in ("realesrgan", "fsrcnn") and upscaler_model not in zoo.ZOO:
             raise ValueError(f"upscaler_model {upscaler_model!r} unknown; choose from "
                              f"{sorted({'realesrgan', 'fsrcnn'} | set(zoo.ZOO))}")
-        self.device = resolve_device(device)
+        self.device = _resolve(device, mesh)
+        self.mesh = mesh
+        if mesh is not None:
+            if tsm_pair:
+                raise ValueError("tsm_pair runs on one device; the sharded denoise step takes K1's route")
+            d = mesh.shape["data"]
+            if not denoising and batch_size % d:
+                raise ValueError(f"batch_size {batch_size} must divide by the mesh's data axis ({d}): "
+                                 f"pass --batch-size {d * max(1, batch_size // d)}")
         self.pix_fmt = pix_fmt
         self.lr_shape = LR_LEVELS[lr_level]
         entry = zoo.ZOO.get(upscaler_model)
@@ -320,9 +356,17 @@ class EsrganUpscalerService(BaseUpscalerService):
             sd = torch_import.dni_blend(sd, sd_wdn, self.denoise_rate)
         return srvgg.from_torch(sd, self.srvgg_cfg, self.device)
 
+    def _sr_cfg(self):
+        """The config of the SR model that runs (parallel.sr_radius's
+        argument)."""
+        if self.upscaler_model == "fsrcnn":
+            return "fsrcnn"
+        return zoo.ZOO[self.upscaler_model].cfg if self.upscaler_model in zoo.ZOO else self.srvgg_cfg
+
     def _build_sr(self):
         """(sr_apply(params, x), float32 params on the device) of the SR
         model that runs, as the JAX package's proc_init builds them."""
+        self._sr_ratio = self.scale
         if self.upscaler_model == "fsrcnn":
             if self.weights is not None:
                 params = fsrcnn.from_torch(torch_import.load_state_dict(self.weights), self.device)
@@ -347,6 +391,8 @@ class EsrganUpscalerService(BaseUpscalerService):
         ratio = None
         if self.fast_epilogue and cfg.upscale == 4 and self.output_shape:
             ratio = _fast_epilogue_ratio(self.lr_shape, self.output_shape)
+        # the SR output's width over the LR width (the sharded steps' halo)
+        self._sr_ratio = Fraction(4 * ratio[1], ratio[0]) if ratio else self.scale
         if ratio:
             log.info("fast epilogue active (fused ps4 + bicubic %d/%d)", *ratio)
 
@@ -393,9 +439,46 @@ class EsrganUpscalerService(BaseUpscalerService):
             # past micro-batch 4 the SR tail runs in sub-batches of 4
             self._sr_sub = 4 if self.batch_size > 4 else None
             self.reset_stream()
-        log.info("model loaded (%s, denoise=%s, tsm_pair=%s, conv_stack=%d, device=%s)",
-                 self.upscaler_model, self.denoising, self.tsm_pair, self.conv_stack, self.device)
+        if self.mesh is not None:
+            self._build_sharded(sr_apply)
+        log.info("model loaded (%s, denoise=%s, tsm_pair=%s, conv_stack=%d, device=%s, mesh=%s)",
+                 self.upscaler_model, self.denoising, self.tsm_pair, self.conv_stack, self.device,
+                 None if self.mesh is None else self.mesh.shape)
         self._initialized = True
+
+    def _build_sharded(self, sr_apply) -> None:
+        """The mesh's steps (parallel/sharded.py), with the halo of this SR
+        model: the denoise chunk cold and warm and its flush, with W over
+        every device, or the SR-only step, batch over "data" and W over
+        "spatial"."""
+        # parallel/ imports the steps of this package: import it when used
+        from ..parallel import (
+            denoise_radius,
+            make_sharded_denoise,
+            make_sharded_denoise_flush,
+            make_sharded_upscale,
+            sr_align,
+            upscale_radius,
+        )
+
+        sr_cfg, mesh, spec = self._sr_cfg(), self.mesh, self.spec
+        align = sr_align(sr_cfg)
+        if self.denoising:
+            kw = dict(halo=denoise_radius(sr_cfg, self.bsvd_cfg), align=align)
+            self._sharded_denoise = {
+                warm: make_sharded_denoise(sr_apply, spec, mesh, self.bsvd_cfg, warm=warm,
+                                           sr_sub_batch=self._sr_sub, **kw)
+                for warm in (False, True)
+            }
+            self._sharded_flush = make_sharded_denoise_flush(sr_apply, spec, mesh, self.bsvd_cfg, **kw)
+        else:
+            self._sharded_multi = make_sharded_upscale(
+                sr_apply, spec, mesh, halo=upscale_radius(sr_cfg, self._sr_ratio), align=align)
+
+    def _frames_in(self, frames: np.ndarray) -> torch.Tensor:
+        """frames for a step: on the device, or on the host for the mesh's
+        factories, which upload each band."""
+        return _to_device(None if self.mesh is not None else self.device, frames)
 
     def reset_stream(self) -> None:
         """Start a fresh stream: BSVD's state and the frame bookkeeping of
@@ -433,13 +516,21 @@ class EsrganUpscalerService(BaseUpscalerService):
         if self._frames_seen >= bsvd.SHIFT_NUM:
             # warm steps leave the skip1/skip2 FIFOs in ring order; the
             # flush steps pop in FIFO order
-            self._den_state = bsvd.ring_to_fifo_state(self._den_state, self.bsvd_cfg)
+            if self.mesh is None:
+                self._den_state = bsvd.ring_to_fifo_state(self._den_state, self.bsvd_cfg)
+            else:
+                self._den_state = self._den_state.map(lambda st: bsvd.ring_to_fifo_state(st, self.bsvd_cfg))
         outs = []
         for i in range(0, total, bs):
-            out, self._den_state = flush_batch_denoise(
-                self._sr_apply, self._params, self._den_state,
-                _to_device(self.device, tail[i : i + bs]), self._frames_seen, self.spec, self.bsvd_cfg,
-            )
+            chunk = self._frames_in(tail[i : i + bs])
+            if self.mesh is not None:
+                out, self._den_state = self._sharded_flush(self._params, self._den_state, chunk,
+                                                           self._frames_seen)
+            else:
+                out, self._den_state = flush_batch_denoise(
+                    self._sr_apply, self._params, self._den_state, chunk, self._frames_seen, self.spec,
+                    self.bsvd_cfg,
+                )
             outs.append(_HostCopy(out))
         drained = np.concatenate([o.numpy() for o in outs])[: bsvd.SHIFT_NUM][bsvd.SHIFT_NUM - k :]
         mask = np.asarray(self._tail_real[-k:], bool)
@@ -468,18 +559,20 @@ class EsrganUpscalerService(BaseUpscalerService):
                 # stream the repeated tail frame is benign
                 pad = np.repeat(frames[-1:], self.batch_size - n, axis=0)
                 frames = np.concatenate([frames, pad], axis=0)
-            out, self._den_state = upscale_batch_denoise(
-                self._sr_apply, self._params, self._den_state, _to_device(self.device, frames),
-                self.spec, self.bsvd_cfg,
-                # steady state: once SHIFT_NUM frames are in, every warm-up
-                # window mask is an identity
-                warm=self._frames_seen >= bsvd.SHIFT_NUM,
-                sr_sub_batch=self._sr_sub,
-                tsm_pair=self.tsm_pair,
-                # the service owns its state: warm steps write the new
-                # frames into its skip rings without copying them
-                inplace=True,
-            )
+            # steady state: once SHIFT_NUM frames are in, every warm-up
+            # window mask is an identity
+            warm = self._frames_seen >= bsvd.SHIFT_NUM
+            if self.mesh is not None:
+                out, self._den_state = self._sharded_denoise[warm](self._params, self._den_state,
+                                                                   self._frames_in(frames))
+            else:
+                out, self._den_state = upscale_batch_denoise(
+                    self._sr_apply, self._params, self._den_state, self._frames_in(frames),
+                    self.spec, self.bsvd_cfg, warm=warm, sr_sub_batch=self._sr_sub, tsm_pair=self.tsm_pair,
+                    # the service owns its state: warm steps write the new
+                    # frames into its skip rings without copying them
+                    inplace=True,
+                )
             self._frames_seen += len(frames)
             # remember the fed frames (pads included: they advance the BSVD
             # timeline) so proc_eof can drain the in-flight tail; pads are
@@ -489,10 +582,17 @@ class EsrganUpscalerService(BaseUpscalerService):
             self._tail_real = (self._tail_real + real)[-bsvd.SHIFT_NUM:]
             return _HostCopy(out), n
 
-        if n < self.batch_size:
-            pad = np.repeat(frames[-1:], self.batch_size - n, axis=0)
+        # a mesh's data axis takes a multiple of its size (a coalesced
+        # batch may be any size)
+        d = 1 if self.mesh is None else self.mesh.shape["data"]
+        padded = max(self.batch_size, -(-n // d) * d)
+        if n < padded:
+            pad = np.repeat(frames[-1:], padded - n, axis=0)
             frames = np.concatenate([frames, pad], axis=0)
-        out = upscale_multi(self._sr_apply, self._sr_params, _to_device(self.device, frames), self.spec)
+        if self.mesh is not None:
+            out = self._sharded_multi(self._sr_params, self._frames_in(frames))
+        else:
+            out = upscale_multi(self._sr_apply, self._sr_params, self._frames_in(frames), self.spec)
         return _HostCopy(out), n
 
 
@@ -500,10 +600,14 @@ class EgvsrUpscalerService(BaseUpscalerService):
     """Frame-recurrent EGVSR service (reference egvsr_upscaler.py:145-212).
 
     device: 'cuda' (default) or 'cpu'; a CUDA device on a host without
-    CUDA raises here, at construction.  cut_threshold: the scene-cut skip
+    CUDA raises here, at construction.  mesh: a parallel.Mesh of devices
+    of that kind: each frame's step then runs W-sharded over every device of
+    the mesh (make_sharded_egvsr_step), whose HR warp is the plain gather
+    (no K3 launch).  cut_threshold: the scene-cut skip
     (egvsr.frnet_step), on by default for a live stream.  chunked: run
     each micro-batch as one egvsr_upscale_chunk (FNet batched over the
-    micro-batch) instead of one egvsr_upscale_step per frame.  The
+    micro-batch) instead of one egvsr_upscale_step per frame (off with a
+    mesh: the chunk is a single-device route).  The
     micro-batch's outputs are stacked on the device and leave through one
     host copy."""
 
@@ -519,9 +623,14 @@ class EgvsrUpscalerService(BaseUpscalerService):
         cut_threshold: float | None = 0.12,
         chunked: bool = False,
         device: str | torch.device = "cuda",
+        mesh=None,
     ) -> None:
         super().__init__(name="EgvsrUpscaler")
-        self.device = resolve_device(device)
+        self.device = _resolve(device, mesh)
+        self.mesh = mesh
+        if chunked and mesh is not None:
+            log.warning("chunked=True is a single-device route; the mesh runs one sharded step a frame")
+            chunked = False
         self.pix_fmt = pix_fmt
         self.lr_shape = LR_LEVELS[lr_level]
         self.output_shape = output_shape
@@ -560,7 +669,13 @@ class EgvsrUpscalerService(BaseUpscalerService):
         )
         h, w = self.lr_shape
         self._state = egvsr.init_recurrent_state(1, h, w, self.cfg, self.compute_dtype, self.device)
-        log.info("model loaded (egvsr %s, chunked=%s, device=%s)", self.cfg, self.chunked, self.device)
+        self._step = None
+        if self.mesh is not None:
+            from ..parallel import make_sharded_egvsr_step
+
+            self._step = make_sharded_egvsr_step(self.spec, self.mesh, self.cfg, cut_threshold=self.cut_threshold)
+        log.info("model loaded (egvsr %s, chunked=%s, device=%s, mesh=%s)", self.cfg, self.chunked, self.device,
+                 None if self.mesh is None else self.mesh.shape)
         self._initialized = True
 
     @torch.inference_mode()
@@ -569,15 +684,18 @@ class EgvsrUpscalerService(BaseUpscalerService):
         frames = np.asarray(frames)
         if frames.ndim != 4 or frames.shape[-1] != 3:
             raise ValueError(f"frames must be (N, H, W, 3), got {frames.shape}")
-        x = _to_device(self.device, frames)
+        x = _to_device(None if self.mesh is not None else self.device, frames)
         kw = dict(cut_threshold=self.cut_threshold, cfg=self.cfg)
         if self.chunked and len(frames) > 1:
             out, self._state = egvsr_upscale_chunk(self._params, self._state, x, self.spec, **kw)
         else:
             outs = []
             for i in range(len(frames)):
-                o, self._state = egvsr_upscale_step(self._params, self._state, x[i : i + 1],
-                                                    self.spec, **kw)
+                if self._step is not None:
+                    o, self._state = self._step(self._params, self._state, x[i : i + 1])
+                else:
+                    o, self._state = egvsr_upscale_step(self._params, self._state, x[i : i + 1],
+                                                        self.spec, **kw)
                 outs.append(o)
             out = torch.cat(outs)
         return _HostCopy(out), len(frames)

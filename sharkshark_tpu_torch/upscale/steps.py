@@ -83,16 +83,29 @@ def upscale_multi(
 
     frames: (N, H, W, 3) uint8 -> (N, OH, OW, 3) uint8.
     `sr_apply(params, x)` maps (N, h, w, 3) [0,1] -> (N, h*s, w*s, 3)."""
+    hr, lr_before = _multi_local(sr_apply, sr_params, frames, spec)
+    return _multi_finish(hr, lr_before, spec)
+
+
+def _multi_local(sr_apply, sr_params, frames: torch.Tensor, spec: UpscaleSpec):
+    """upscale_multi up to its colour match, the part that reads only a
+    pixel's neighbourhood: (SR output, the LR frames it matches)."""
     img = to_float(frames)
     lr = img
     h, w = img.shape[-3], img.shape[-2]
     if spec.lr_hr_resize and (h > spec.lr_shape[0] or w > spec.lr_shape[1]):
         lr = resize(img, spec.lr_shape, "area")
-    lr_before = lr
+    return sr_apply(sr_params, lr.to(spec.compute_dtype)), lr
 
-    hr = sr_apply(sr_params, lr.to(spec.compute_dtype))
-    hr = global_color_match(hr, lr_before)
-    hr = local_color_match(hr, lr_before)
+
+def _multi_finish(hr, lr_before, spec: UpscaleSpec, stats=None, full_hw=None) -> torch.Tensor:
+    """upscale_multi from its colour match on: the global match (with the
+    per-image statistics `stats` where a caller computed them over a
+    whole frame that `hr` is a part of, ops.global_color_match), the
+    local match (`full_hw`: that whole frame's HR size), clamp, output
+    resize and emission."""
+    hr = global_color_match(hr, lr_before, stats)
+    hr = local_color_match(hr, lr_before, full_hw=full_hw)
     hr = torch.clamp(hr, 0.0, 1.0)
     if spec.lr_hr_resize:
         hr = _resize_to_output(hr, spec)
@@ -198,9 +211,18 @@ def upscale_batch_denoise(
     pipeline delay).  tsm_pair: BSVD's warm mem blocks through K2;
     inplace: a warm step updates the state's skip rings in place, which
     consumes the state passed in (both bsvd.chunk_step)."""
+    den, lr, new_state = _denoise_front(params, state, frames, spec, cfg, warm=warm, tsm_pair=tsm_pair,
+                                        inplace=inplace)
+    outs = [_denoise_postproc(sr_apply, params, den[sl], lr[sl], lr[sl], spec)
+            for sl in _sub_batches(lr.shape[0], sr_sub_batch)]
+    return (outs[0] if len(outs) == 1 else torch.cat(outs)), new_state
+
+
+def _denoise_front(params, state, frames, spec: UpscaleSpec, cfg: bsvd.BSVDConfig, **chunk_kw):
+    """upscale_batch_denoise's BSVD chunk: (denoised (T, h, w, 3) at the
+    /4 state size, the LR frames, new state)."""
     img = to_float(frames)
     lr = resize(img, spec.lr_shape, "area")
-    lr_before = lr
     t = lr.shape[0]
     state_dtype = state["temp1"]["skip1"].dtype
 
@@ -212,21 +234,16 @@ def upscale_batch_denoise(
         for i in range(t)
     ])
     x4 = torch.cat([lr_p[:, None].to(state_dtype), noise], dim=-1)
-    den, new_state = bsvd.chunk_step(params["denoise"], state, x4, cfg=cfg, warm=warm, tsm_pair=tsm_pair,
-                                     inplace=inplace)
-    den = den[:, 0]
+    den, new_state = bsvd.chunk_step(params["denoise"], state, x4, cfg=cfg, **chunk_kw)
+    return den[:, 0], lr, new_state
+
+
+def _sub_batches(t: int, sr_sub_batch: int | None) -> list[slice]:
+    """The SR tail's sub-batches of a T-frame chunk: sr_sub_batch frames
+    each when T is a larger multiple of it, else the whole chunk."""
     if sr_sub_batch and t > sr_sub_batch and t % sr_sub_batch == 0:
-        out = torch.cat([
-            _denoise_postproc(
-                sr_apply, params,
-                den[i : i + sr_sub_batch], lr[i : i + sr_sub_batch],
-                lr_before[i : i + sr_sub_batch], spec,
-            )
-            for i in range(0, t, sr_sub_batch)
-        ])
-    else:
-        out = _denoise_postproc(sr_apply, params, den, lr, lr_before, spec)
-    return out, new_state
+        return [slice(i, i + sr_sub_batch) for i in range(0, t, sr_sub_batch)]
+    return [slice(0, t)]
 
 
 def _denoise_postproc(sr_apply, params, den, lr, lr_before, spec: UpscaleSpec):
@@ -234,13 +251,24 @@ def _denoise_postproc(sr_apply, params, den, lr, lr_before, spec: UpscaleSpec):
     frames against the pre-denoise LR, SR, HR sharpen, global color
     match, output resize, uint8 (reference upscale_single :279-326).
     Runs in the compute dtype, like the reference's fp16 amp region."""
+    return _denoise_finish(_denoise_local(sr_apply, params, den, lr, spec), lr_before, spec)
+
+
+def _denoise_local(sr_apply, params, den, lr, spec: UpscaleSpec) -> torch.Tensor:
+    """_denoise_postproc up to its colour match, the part that reads only
+    a pixel's neighbourhood: the sharpened, clamped SR output."""
     den = _bsvd_crop(den, spec)
     den = torch.clamp(sharpen(den.to(spec.compute_dtype), 0.00002), 0.0, 1.0)
     lr = den * spec.denoise_opacity + (1.0 - spec.denoise_opacity) * lr
 
     hr = sr_apply(params["sr"], lr.to(spec.compute_dtype))
-    hr = torch.clamp(sharpen(hr, 0.00007), 0.0, 1.0)
-    hr = global_color_match(hr, lr_before)
+    return torch.clamp(sharpen(hr, 0.00007), 0.0, 1.0)
+
+
+def _denoise_finish(hr, lr_before, spec: UpscaleSpec, stats=None) -> torch.Tensor:
+    """_denoise_postproc from its global colour match on (`stats` as in
+    _multi_finish): clamp, output resize and emission."""
+    hr = global_color_match(hr, lr_before, stats)
     hr = torch.clamp(hr, 0.0, 1.0)
     hr = _resize_to_output(hr, spec)
     return _emit(hr, spec)
@@ -263,15 +291,20 @@ def flush_batch_denoise(
     lr_tail: (T, H, W, 3) uint8, the raw frames this chunk drains, oldest
     first (zero-filled where the caller discards the output).
     Returns ((T, OH, OW, 3) uint8, new_state)."""
+    den, lr, new_state = _flush_front(params, state, lr_tail, t_end, spec, cfg)
+    return _denoise_postproc(sr_apply, params, den, lr, lr, spec), new_state
+
+
+def _flush_front(params, state, lr_tail, t_end: int, spec: UpscaleSpec, cfg: bsvd.BSVDConfig):
+    """flush_batch_denoise's BSVD chunk of zero frames: (drained frames,
+    the LR frames they blend with, new state)."""
     img = to_float(lr_tail)
     lr = resize(img, spec.lr_shape, "area")
-    lr_before = lr
     state_dtype = state["temp1"]["skip1"].dtype
     h, w = _ceil4(spec.lr_shape[0]), _ceil4(spec.lr_shape[1])
     zeros = torch.zeros((lr_tail.shape[0], 1, h, w, 4), dtype=state_dtype, device=lr.device)
     den, new_state = bsvd.chunk_step(params["denoise"], state, zeros, cfg=cfg, t_end=t_end)
-    out = _denoise_postproc(sr_apply, params, den[:, 0], lr, lr_before, spec)
-    return out, new_state
+    return den[:, 0], lr, new_state
 
 
 def _egvsr_lr(frames: torch.Tensor, spec: UpscaleSpec) -> torch.Tensor:

@@ -234,11 +234,14 @@ def test_cli_parser_surface():
     assert args.model == "realesrgan" and args.device == "cpu"
 
 
-@pytest.mark.parametrize("argv", [["--mesh", "1,2"]])
+@pytest.mark.parametrize("argv", [["--mesh", "1,2,3"]])
 def test_cli_refuses_what_is_not_ported(argv, capsys):
+    """Every flag of the JAX CLI is ported (--mesh since the multi-device
+    slice, tests/test_torch_parallel.py); a --mesh that names no DATA,SPATIAL
+    shape is the parser's error."""
     with pytest.raises(SystemExit):
         cli.main(["--url", "x", "--device", "cpu", *argv])
-    assert "ROADMAP" in capsys.readouterr().err
+    assert "--mesh 1,2,3" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("name", ["fsrcnn_x3", "realesr-animevideov4"])
