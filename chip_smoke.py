@@ -130,7 +130,19 @@ Phases (any failure exits non-zero, and nothing is caught):
      gather), the CLI with --mesh 1,S (S the cards present, up to 4; 1,1
      on one card, still through the sharded factories) with its exact
      bytes, and, with two or more cards, K1 and K4 against their plain
-     versions on each card;
+     versions on each card; K1 and K4 at the bands' shapes beside their
+     plain versions, their bounds and the cuDNN calls;
+ 16. training over the mesh and the last tools: make_sharded_train_step
+     at configs/egvsr_bd.yml's FRNet (nf 64, nb 10, BD, T 10, the minted
+     weights) against the single-device step, at its crop 128 and batch
+     4 on a data 2 x spatial 2 mesh and at crop 1024 and batch 2 on
+     spatial 2 (bands that cut), in float32 (TF32 off) and float64, with
+     ms a step; tools/warp_fidelity.py at 2160x3840 (three flows, three
+     K3 launches); tools/ingest_weights.py on the minted SRVGG file and
+     on two corrupted copies, which it must refuse; tools/bench_matrix.py
+     --configs 3,0 --suites sr denoise --iters 2; tools/mint_lpips.py's
+     training for 40 steps on seeded stills and its ranking check, on the
+     card and the CPU;
 then one JSON line of kernel numbers, the card's name and power limit,
 and the result line last.  Exits 2 without a result when CUDA is
 unavailable or the script stands outside the repo checkout.
@@ -2419,17 +2431,20 @@ def check_band_shapes(bench, bench_cs, shapes: dict, card: str) -> dict:
     for c, h, w in sorted(shapes["tsm_conv"]):
         row = bench.measure(c, h, w, reps=5)
         rows["tsm_conv"].append({k: row[k] for k in ("c", "h", "w", "max_abs_err", "kernel_ms", "device_ms",
-                                                     "plain_ms", "bound_ms", "bound_by")})
+                                                     "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                                     "library_device_ms")})
         log(f"tsm_conv at a band's C={c} {h}x{w} T=4: max|err| {row['max_abs_err']:.4g} (rtol=atol={bench.TOL}); "
             f"{row['device_ms']:.4f} ms back to back, plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} "
-            f"ms on {card}")
+            f"ms, one cuDNN conv {row['library_device_ms']:.4f} ms back to back on {card}")
     for shape in sorted(shapes["fused_conv_stack"]):
         row = bench_cs.measure(1, True, shape=shape, reps=5)
         rows["fused_conv_stack"].append({k: row[k] for k in ("shape", "max_abs_err", "ref_max", "kernel_ms",
-                                                              "device_ms", "plain_ms", "bound_ms", "bound_by")})
+                                                              "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                                              "library_ms", "library_device_ms")})
         log(f"fused_conv_stack at a band's {tuple(row['shape'])}: max|err| {row['max_abs_err']:.4g} (limit "
             f"{bench_cs.TOL * max(row['ref_max'], 1.0):.4g}); {row['device_ms']:.4f} ms back to back, plain "
-            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms on {card}")
+            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms, conv2d + bias + PReLU "
+            f"{row['library_device_ms']:.4f} ms back to back on {card}")
         assert row["max_abs_err"] <= bench_cs.TOL * max(row["ref_max"], 1.0), row
     return rows
 
@@ -2639,6 +2654,276 @@ def run_mesh_phase(service_mod, counters, tsm, cs, bench, bench_cs, card: str, d
     return res
 
 
+# -------------------------------------------------------------- phase 16
+
+
+def train_clips(batch: int, t: int, crop: int, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(lr, gt) training clips (N, T, crop/4, crop/4, 3) and (N, T, crop,
+    crop, 3) in [0, 1]: a smooth random scene panning 3 px right and 2 px
+    down a frame, and its 4x4 area downsample."""
+    g = torch.Generator().manual_seed(seed)
+    coarse = torch.rand((batch, 3, crop // 16 + 8, crop // 16 + 8), generator=g)
+    scene = F.interpolate(coarse, scale_factor=16, mode="bicubic", align_corners=False).clamp(0, 1)
+    gt = torch.stack([scene[:, :, 2 * i : 2 * i + crop, 3 * i : 3 * i + crop] for i in range(t)], dim=1)
+    lr = F.avg_pool2d(gt.flatten(0, 1), 4).unflatten(0, (batch, t))
+    return lr.permute(0, 1, 3, 4, 2).contiguous(), gt.permute(0, 1, 3, 4, 2).contiguous()
+
+
+def mesh_order_grads(cfg, params: dict, lr: torch.Tensor, gt: torch.Tensor, data: int, bands: list) -> list:
+    """The single-device step's arithmetic (egvsr.forward_sequence, the
+    plain gather warp, the config's criteria) with its loss summed in the
+    sharded step's order: a whole-clip forward of each data shard for
+    each band, the pixel and warp criteria on the band's centre columns
+    only, one backward of the sum.  Its gradient leaves, on lr's device."""
+    from sharkshark_tpu_torch.models import egvsr
+    from sharkshark_tpu_torch.ops.warp import backward_warp
+    from sharkshark_tpu_torch.train import vsr
+    from sharkshark_tpu_torch.train.losses import criterion_parts
+
+    pix, warp = (criterion_parts(c or {"type": "CB"}) for c in (cfg.pixel_crit, cfg.warping_crit))
+    n, t, h, w, c = lr.shape
+    s, nb = cfg.model_cfg.scale, n // data
+    sums = [0.0, 0.0]
+    for r in range(data):
+        x, y = lr[r * nb : (r + 1) * nb], gt[r * nb : (r + 1) * nb]
+        for band in bands:
+            out = egvsr.forward_sequence(params, x, cfg=cfg.model_cfg)
+            hr = slice(s * band.c0, s * band.c1)
+            sums[0] = sums[0] + pix[0](out["hr_data"][:, :, :, hr], y[:, :, :, hr])
+            lr_warp = backward_warp(out["lr_prev"], out["lr_flow"])
+            sums[1] = sums[1] + warp[0](lr_warp[:, :, band.c0 : band.c1], out["lr_curr"][:, :, band.c0 : band.c1])
+    counts = (n * t * h * s * w * s * c, n * (t - 1) * h * w * c)
+    loss = sum(weight * (total / count if mean else total) for weight, total, count, mean in
+               zip((cfg.pixel_weight, cfg.warping_weight), sums, counts, (pix[1], warp[1])))
+    loss.backward()
+    return [p.grad.detach().clone() for p in vsr.param_leaves(params)]
+
+
+def sharded_train_case(cfg, sched, params: dict, crop: int, batch: int, data: int, spatial: int,
+                       iters: int = 3, t: int = 10) -> dict:
+    """One step of make_sharded_train_step on a data x spatial mesh of
+    mesh_devices against one step of the single-device train step, from
+    the same weights on the same clips, on the card with TF32 off: in
+    float32 the loss's relative error and every gradient leaf's ||delta||
+    / ||g|| beside the leaf's float32 floor (the single-device float32
+    gradient against the float64 one) and beside the same arithmetic
+    summed in the mesh's order (mesh_order_grads) against the plain
+    step, and the sharded step against that reading; in float64 the
+    same errors, which hold the sharding's arithmetic to the CPU tests'
+    tolerances (loss 1e-5, leaves 1e-4) once rounding is out of the way;
+    ms per float32 step of each (median of `iters` after the compared
+    step) and peak memory."""
+    from sharkshark_tpu_torch.models.torch_import import to_tensors
+    from sharkshark_tpu_torch.parallel import _bands, egvsr_radius, make_mesh, make_sharded_train_step
+    from sharkshark_tpu_torch.train import vsr
+
+    clips = train_clips(batch, t, crop, seed=crop)
+    step = vsr.make_train_step(cfg, sched)
+    mesh = make_mesh(devices=mesh_devices(4)[: data * spatial], data=data, spatial=spatial)
+    sharded = make_sharded_train_step(step, mesh)
+
+    def run(fn, dtype, iters=0):
+        lr, gt = (x.to("cuda", dtype) for x in clips)
+        leaves = _bands.tree_map(lambda x: x.detach().clone().requires_grad_(True),
+                                 to_tensors(params, "cuda", dtype))
+        state = vsr.TrainState(leaves, vsr.make_optimizer(vsr.param_leaves(leaves), cfg.lr, cfg.beta1, cfg.beta2))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, logs = fn(state, lr, gt)
+        grads = [p.grad.detach().clone() for p in vsr.param_leaves(state.params)]
+        times = []
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(state, lr, gt)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out = {"logs": {k: float(v) for k, v in logs.items()}, "grads": grads,
+               "ms": statistics.median(times) if times else None, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del state, lr, gt
+        torch.cuda.empty_cache()
+        return out
+
+    bands = _bands.split_width(crop // 4, list(mesh.devices[0]), 8, egvsr_radius(cfg.model_cfg))
+    with cudnn_tf32(False):
+        runs = {(name, dtype): run(fn, dtype, iters if dtype == torch.float32 else 0)
+                for dtype in (torch.float32, torch.float64) for name, fn in (("one", step), ("sharded", sharded))}
+        lr, gt = (x.to("cuda") for x in clips)
+        ordered = mesh_order_grads(cfg, _bands.tree_map(lambda x: x.detach().clone().requires_grad_(True),
+                                                        to_tensors(params, "cuda")), lr, gt, data, bands)
+        del lr, gt
+        torch.cuda.empty_cache()
+    names = leaf_names(params)
+
+    def errs(dtype):
+        one, sh = runs["one", dtype], runs["sharded", dtype]
+        return ({k: abs(sh["logs"][k] - one["logs"][k]) / abs(one["logs"][k]) for k in one["logs"]},
+                leaf_rel_errs(sh["grads"], one["grads"]))
+
+    loss32, rel32 = errs(torch.float32)
+    loss64, rel64 = errs(torch.float64)
+    floor = leaf_rel_errs(runs["one", torch.float32]["grads"], runs["one", torch.float64]["grads"])
+    order = leaf_rel_errs(ordered, runs["one", torch.float32]["grads"])
+    vs_order = leaf_rel_errs(runs["sharded", torch.float32]["grads"], ordered)
+    worst = sorted(range(len(rel32)), key=lambda i: -rel32[i])[:3]
+    return {"crop": crop, "batch": batch, "t": t, "data": data, "spatial": spatial,
+            "devices": [str(d) for d in mesh.device_list],
+            "bands_lr_cols": [[b.lo, b.c0, b.c1, b.hi] for b in bands],
+            "loss_one": runs["one", torch.float32]["logs"]["l_total"],
+            "loss_sharded": runs["sharded", torch.float32]["logs"]["l_total"],
+            "loss_rel_err": loss32, "grad_rel_err_max": max(rel32), "grad_leaves": len(rel32),
+            "worst_leaves": [[names[i], rel32[i], floor[i], order[i], vs_order[i]] for i in worst],
+            "leaves_over_1e-4": [[names[i], rel32[i], order[i], vs_order[i]] for i in range(len(rel32))
+                                 if rel32[i] > 1e-4],
+            "mesh_order_rel_err_max": max(order), "vs_mesh_order_rel_err_max": max(vs_order),
+            "leaves_over_bound": [names[i] for i in range(len(rel32))
+                                  if rel32[i] > 1e-4 and (vs_order[i] > 1e-4 or rel32[i] > 2 * order[i])],
+            "float64_loss_rel_err": loss64, "float64_grad_rel_err_max": max(rel64),
+            "ms_per_step_one": runs["one", torch.float32]["ms"],
+            "ms_per_step_sharded": runs["sharded", torch.float32]["ms"],
+            "peak_gb_one": runs["one", torch.float32]["peak_gb"],
+            "peak_gb_sharded": runs["sharded", torch.float32]["peak_gb"],
+            "peak_gb_float64_sharded": runs["sharded", torch.float64]["peak_gb"]}
+
+
+def run_sharded_train(card: str) -> list[dict]:
+    """configs/egvsr_bd.yml's FRNet (nf 64, nb 10, BD) from the minted
+    weights (the seeded init diverges over the clip, PERF.md), T = 10:
+    its own crop 128 and batch 4 on a data 2 x spatial 2 mesh (every band
+    the whole 32-column clip), and crop 1024, batch 2 on spatial 2 (bands
+    of 224 of the 256 LR columns), each against the single-device step.
+    Float64 holds the CPU tests' tolerances (loss 1e-5, every leaf 1e-4).
+    Float32 holds the loss at 1e-5 and each leaf at 1e-4 against the
+    plain step, save a leaf where the plain step's own arithmetic, its
+    loss summed in the mesh's order (mesh_order_grads), strays at least
+    half as far from the plain step and the sharded step lies within
+    1e-4 of that reading: rounding of the summation order, not of the
+    sharding."""
+    import yaml
+    from sharkshark_tpu_torch.models import egvsr, torch_import
+    from sharkshark_tpu_torch.train import driver
+
+    opt = yaml.safe_load((ROOT / "configs" / "egvsr_bd.yml").read_text())
+    cfg = driver.build_training(opt, "cpu").cfg
+    params = egvsr.from_torch(torch_import.load_state_dict(str(MINTED / "egvsr-derived-x4.pth")), cfg.model_cfg)
+    rows = []
+    own = opt["dataset"]["train"]
+    for crop, batch, data, spatial in ((own["crop_size"], own["batch_size"], 2, 2), (1024, 2, 1, 2)):
+        r = sharded_train_case(cfg, lambda s: cfg.lr, params, crop, batch, data, spatial,
+                               t=opt["train"]["tempo_extent"])
+        log(f"sharded train step, FRNet nf {cfg.model_cfg.nf} nb {cfg.model_cfg.nb}, crop {crop}, batch {batch}, "
+            f"T {r['t']}, data {data} x spatial {spatial} on {r['devices']} (bands [lo, c0, c1, hi] "
+            f"{r['bands_lr_cols']}) against one device: float32 loss rel err {r['loss_rel_err']['l_total']:.3g}, "
+            f"max ||d||/||g|| {r['grad_rel_err_max']:.3g} over {r['grad_leaves']} leaves (worst [leaf, err, float32 "
+            f"floor, mesh-order reading vs one device, sharded vs the reading]: {r['worst_leaves']}; over 1e-4: "
+            f"{r['leaves_over_1e-4']}; the reading vs one device {r['mesh_order_rel_err_max']:.3g}, sharded vs the "
+            f"reading {r['vs_mesh_order_rel_err_max']:.3g}); float64 loss {r['float64_loss_rel_err']['l_total']:.3g}, "
+            f"grads "
+            f"{r['float64_grad_rel_err_max']:.3g}; {r['ms_per_step_sharded']:.3f} ms a step sharded, "
+            f"{r['ms_per_step_one']:.3f} one device, peak {r['peak_gb_sharded']:.3f} / {r['peak_gb_one']:.3f} GB "
+            f"on {card}")
+        assert max(r["float64_loss_rel_err"].values()) <= 1e-5 and r["float64_grad_rel_err_max"] <= 1e-4, r
+        assert max(r["loss_rel_err"].values()) <= 1e-5 and not r["leaves_over_bound"], r
+        rows.append(r)
+    return rows
+
+
+def run_warp_fidelity(counters, bench_warp, card: str) -> dict:
+    """tools/warp_fidelity.py at its defaults (a seeded still at
+    2160x3840, flows of 4, 20 and 90 px): its three rows, each within
+    K3's tolerance of phase 3 against the float32 gather, and one K3
+    launch a row."""
+    from sharkshark_tpu_torch.tools import warp_fidelity
+
+    counters.reset()
+    t0 = time.perf_counter()
+    rows = warp_fidelity.run([])
+    wall = time.perf_counter() - t0
+    launches = counters.read()
+    log(f"warp_fidelity at 2160x3840: {rows}; launches {launches}; {wall:.3f} s on {card}")
+    assert launches == {"tsm_conv": 0, "tsm_conv_pair": 0, "backward_warp": len(rows), "fused_conv_stack": 0}, launches
+    assert all(r["max_abs_err"] <= bench_warp.TOL for r in rows), rows
+    return {"rows": rows, "launches": launches, "wall_s": wall}
+
+
+def run_other_tools(counters, card: str, tmp: Path) -> dict:
+    """tools/ingest_weights.py on the minted SRVGG file (installed byte for
+    byte under the zoo's name) and on two corrupted copies (truncated, and
+    a tensor of the wrong shape), each refused with nothing copied;
+    tools/bench_matrix.py --configs 3,0 --suites sr denoise --iters 2;
+    tools/mint_lpips.py's training for 40 steps on its seeded stills, its
+    export into `tmp` and its ranking check, on the card and the CPU (the
+    committed pair untouched)."""
+    from sharkshark_tpu_torch.tools import bench_matrix, ingest_weights, mint_lpips
+
+    res = {}
+    src = MINTED / "srvgg-derived-x4.pth"
+    dst = Path(ingest_weights.main([str(src), "--model", "realesr-general-x4v3", "--weight-dir", str(tmp / "w")]))
+    assert dst.name == "realesr-general-x4v3.pth" and dst.read_bytes() == src.read_bytes(), dst
+    sd = torch.load(src, map_location="cpu", weights_only=True)
+    inner = sd["params"]  # the release files' wrapper
+    key = sorted(inner)[0]
+    inner[key] = torch.zeros(tuple(v + 1 for v in inner[key].shape))
+    bad = {"truncated": tmp / "truncated.pth", "misshaped": tmp / "misshaped.pth"}
+    bad["truncated"].write_bytes(src.read_bytes()[: src.stat().st_size // 2])
+    torch.save(sd, bad["misshaped"])
+    res["ingest"] = {"installed": dst.name, "refused": {}}
+    for name, path in bad.items():
+        wdir = tmp / f"w_{name}"
+        try:
+            ingest_weights.main([str(path), "--model", "realesr-general-x4v3", "--weight-dir", str(wdir)])
+        except (RuntimeError, KeyError, ValueError, SystemExit) as ex:
+            res["ingest"]["refused"][name] = f"{type(ex).__name__}: {str(ex)[:160]}"
+        assert name in res["ingest"]["refused"], f"ingest_weights accepted a {name} copy"
+        assert not wdir.exists() or not list(wdir.iterdir()), f"a {name} copy was installed"
+    log(f"ingest_weights: installed {dst.name} byte for byte; refused {res['ingest']['refused']}")
+
+    counters.reset()
+    t0 = time.perf_counter()
+    rows = bench_matrix.run(["--configs", "3,0", "--suites", "sr", "denoise", "--iters", "2"])
+    res["bench_matrix"] = {"rows": rows, "launches": counters.read(), "wall_s": time.perf_counter() - t0}
+    sr, den = rows
+    assert sr["fused_epilogue"] == "2/1" and sr["card"] == card and den["card"] == card, rows
+    assert all(np.isfinite(r["fps"]) and r["fps"] > 0 for r in rows), rows
+    log(f"bench_matrix: {rows}; launches {res['bench_matrix']['launches']}")
+
+    # mint_lpips: its training on the card, its export and its ranking
+    # check through train/metrics.LPIPS on the card, and the same check of
+    # the same files on the CPU.  Its gate (every family ranked, the tool's
+    # condition to ship) is printed, not asserted: after 40 steps on seeded
+    # stills it passes or fails with the rounding of the run (PERF.md)
+    t0 = time.perf_counter()
+    stills, hold = mint_lpips.stills(None, None, str(tmp))
+    params, losses = mint_lpips.train(stills, 40, device="cuda")
+    (tmp / "lpips").mkdir()
+    alex, lin = mint_lpips.export(params, str(tmp / "lpips"))
+    check = mint_lpips.check_ranking(mint_lpips.LPIPS(alex, lin, "cuda"), hold)
+    wall = time.perf_counter() - t0
+    cpu = mint_lpips.check_ranking(mint_lpips.LPIPS(alex, lin, "cpu"), hold)
+    dist_err = max(abs(a - b) / max(abs(b), 1e-3) for f in check["families"]
+                   for a, b in zip(check["families"][f]["distances"], cpu["families"][f]["distances"]))
+    res["mint_lpips"] = {"losses": losses, "check": check, "check_cpu": cpu, "card_vs_cpu_rel_err": dist_err,
+                         "wall_s": wall}
+    log(f"mint_lpips, 40 steps on seeded stills: loss {losses[0]:.4f} -> {losses[-1]:.4f}, ranking check on the "
+        f"card {check} (gate {'passed' if check['ok'] else 'failed: the tool would not ship'}), the same files' "
+        f"distances on the CPU within {dist_err:.3g} (relative, floor 1e-3); {wall:.3f} s on {card}")
+    assert all(np.isfinite(losses)) and check["self_distance"] == 0.0, check
+    assert dist_err <= 1e-3, (check, cpu)
+    return res
+
+
+def run_train_tools_phase(counters, bench_warp, card: str) -> dict:
+    """Phase 16: make_sharded_train_step at full width, warp_fidelity on K3
+    and the other three tools."""
+    t_phase = time.perf_counter()
+    res = {"sharded_train": run_sharded_train(card), "warp_fidelity": run_warp_fidelity(counters, bench_warp, card)}
+    build = ROOT / "sharkshark_tpu_torch" / "build"
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        res["tools"] = run_other_tools(counters, card, Path(tmp))
+    res["wall_s"] = time.perf_counter() - t_phase
+    return res
+
+
 def get_bytes(url: str) -> bytes:
     import urllib.request
 
@@ -2806,6 +3091,12 @@ def main() -> int:
     log(f"phase 15 took {mesh_res['wall_s']:.1f} s")
     log(json.dumps({"mesh": mesh_res}))
 
+    # 16. the sharded train step at full width, warp_fidelity on K3 and
+    # the other tools
+    tools_res = run_train_tools_phase(counters, bench_warp, card)
+    log(f"phase 16 took {tools_res['wall_s']:.1f} s")
+    log(json.dumps({"train_tools": tools_res}))
+
     # the kernels line: launches from the main path's run, or, for a route
     # that is off by default, from the run with the routes on
     stack_row = next(r for r in stack_rows if r["layers"] == stack_l and r["bias"])
@@ -2843,6 +3134,7 @@ def main() -> int:
     kernels[3]["launches_sharded_denoise_by_device"] = mesh_den["launches_by_device"]["fused_conv_stack"]
     kernels[3]["launches_sharded_sr"] = mesh_res["sr_only"]["mesh"]["launches"]["fused_conv_stack"]
     kernels[2]["launches_sharded_egvsr"] = mesh_res["egvsr"]["mesh"]["launches"]["backward_warp"]
+    kernels[2]["launches_warp_fidelity"] = tools_res["warp_fidelity"]["launches"]["backward_warp"]
     for k in kernels:
         assert k["launches"] > 0, f"{k['name']} was not launched on its path"
     log(json.dumps({"defaults": defaults, "routes_on": routes_on, "route_timing": route_rows,

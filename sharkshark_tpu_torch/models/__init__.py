@@ -1,8 +1,8 @@
 import torch
 
-from . import bsvd, egvsr, fsrcnn, rrdbnet, srvgg, torch_import, zoo
+from . import bsvd, egvsr, fsrcnn, rrdbnet, srvgg, torch_import, variants, zoo
 
-__all__ = ["bsvd", "egvsr", "fsrcnn", "rrdbnet", "srvgg", "torch_import", "zoo", "cast_params"]
+__all__ = ["bsvd", "egvsr", "fsrcnn", "rrdbnet", "srvgg", "torch_import", "variants", "zoo", "cast_params"]
 
 
 def cast_params(params, dtype: torch.dtype):

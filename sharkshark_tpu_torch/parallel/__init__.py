@@ -1,6 +1,6 @@
-"""Multi-device serving (counterpart of the JAX package's parallel/):
-a mesh of torch.devices driven from one process, and the sharded
-versions of the serving steps."""
+"""Multi-device serving and training (counterpart of the JAX package's
+parallel/): a mesh of torch.devices driven from one process, the sharded
+versions of the serving steps, and the sharded VSR train step."""
 
 from ._bands import ShardedState, gather_state, shard_state
 from .mesh import (
@@ -20,6 +20,7 @@ from .sharded import (
     make_sharded_denoise,
     make_sharded_denoise_flush,
     make_sharded_egvsr_step,
+    make_sharded_train_step,
     make_sharded_upscale,
     sr_align,
     sr_radius,
@@ -29,7 +30,7 @@ from .sharded import (
 
 __all__ = [
     "make_mesh", "replicated", "batch_sharding", "spatial_sharding",
-    "pad_batch", "P", "make_sharded_upscale",
+    "pad_batch", "P", "make_sharded_upscale", "make_sharded_train_step",
     "make_sharded_denoise", "make_sharded_denoise_flush",
     "make_sharded_egvsr_step", "width_sharding",
     "Mesh", "NamedSharding", "ShardedState", "shard_state", "gather_state",

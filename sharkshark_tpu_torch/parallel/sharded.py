@@ -79,6 +79,7 @@ __all__ = [
     "make_sharded_denoise",
     "make_sharded_denoise_flush",
     "make_sharded_egvsr_step",
+    "make_sharded_train_step",
     "width_sharding",
     "sr_radius",
     "bsvd_radius",
@@ -495,3 +496,150 @@ def _sharded_egvsr_body(reps: dict, sh: ShardedState, frame, spec: UpscaleSpec, 
             outs.append(_emit(_resize_to_output(torch.clamp(hr.float(), 0.0, 1.0), bspec), bspec))
         new_parts.append((lr, hr))
     return _gather_out(outs, bands, frame_w, spec, dev0), sh.replace(new_parts)
+
+
+# ------------------------------------------------------------ training
+
+# FNet pools by 2 three times: band edges on multiples of 8 LR columns
+# pool a band at the whole clip's positions
+_FNET_ALIGN = 8
+
+
+def make_sharded_train_step(train_step: Callable, mesh: Mesh) -> Callable:
+    """Shard a train/vsr.make_train_step function over the mesh:
+    `fn(state, lr_data, gt_data) -> (state, logs)` with the batch of
+    (N, T, h, w, C) clips over "data" and the width over "spatial", the
+    TrainState (parameters and Adam moments) on the mesh's first device,
+    where the caller sees it, and `logs` with the single-device step's
+    keys (l_pix_G, l_warp_G, l_total).
+
+    The step reads the loss function and the schedule that train_step
+    exposes (`train_step.loss_fn`, whose `cfg` is the VSRTrainConfig, and
+    `train_step.schedule`); a step without them (the GAN step) raises a
+    TypeError.  N must divide by the data axis.
+
+    Each call copies the parameters to every other device of the mesh
+    through autograd (`Tensor.to`), so they are fresh at every call and
+    each device's part of the gradient flows back into the one set of
+    parameters on the first device, where autograd sums them;
+    vsr.apply_gradients then makes one optimizer step there.  No
+    torch.distributed and no NCCL.
+
+    The width is split into bands (parallel/_bands.py) with a halo of
+    egvsr_radius(cfg) LR columns, rounded up to FNet's alignment of 8.
+    Frame by frame, each band computes its LR flow and SRNet output on
+    its columns; the previous HR frame is gathered whole from the bands'
+    centres to every device (as the serving step does), and each band
+    warps its columns from it in the frame's coordinates, border clamp
+    at the frame's edges.  Each band's loss covers its centre columns
+    only: the pixel loss on its HR centre, the warp loss on its LR
+    centre (whose warp reads the whole previous LR frame).  A criterion
+    that sums (Charbonnier by default) adds up over bands and data
+    shards; a mean (MSE by default) is that sum over the whole clip's
+    element count (train.losses.criterion_parts; any other criterion
+    raises a ValueError).  So the bands' gradients sum to the whole
+    step's, up to rounding, as long as the halo covers the step's
+    radius.
+
+    What the spatial axis buys: configs/egvsr_bd.yml's FRNet (nf 64,
+    nb 10) has a radius of 65 + 1 + 20 + 2 + 1 = 89 LR columns (a halo
+    of 96), wider than its crop's 32 LR columns (GT crop 128), so at
+    that crop every band computes the whole clip and keeps its centre's
+    loss: exact, and no saving.  The spatial axis only pays at crops
+    wider than about twice the radius (some 180 LR columns); below that
+    the data axis is the one that splits the work."""
+    # imported here, so that the serving steps do not load the training tree
+    from ..train.losses import criterion_parts
+    from ..train.vsr import apply_gradients, param_leaves
+
+    missing = [a for a in ("loss_fn", "schedule") if not hasattr(train_step, a)]
+    if missing:
+        raise TypeError(f"make_sharded_train_step needs the step's loss function and schedule, as "
+                        f"train.vsr.make_train_step exposes them; this train_step has no "
+                        f"{' and no '.join(missing)}")
+    cfg = getattr(train_step.loss_fn, "cfg", None)
+    if cfg is None:
+        raise TypeError("make_sharded_train_step needs train_step.loss_fn.cfg (the VSRTrainConfig of "
+                        "train.vsr.make_loss_fn)")
+    pix = criterion_parts(cfg.pixel_crit or {"type": "CB"})
+    warp = criterion_parts(cfg.warping_crit or {"type": "CB"})
+    rows = [list(r) for r in mesh.devices]
+    devices = mesh.device_list
+    dev0 = devices[0]
+    halo = egvsr_radius(cfg.model_cfg)
+
+    def fn(state, lr_data, gt_data):
+        n, t, h, w, c = lr_data.shape
+        if n % len(rows):
+            raise ValueError(f"batch {n} does not divide by the mesh's data axis ({len(rows)})")
+        for p in param_leaves(state.params):
+            if p.device != dev0:
+                raise ValueError(f"the train state's parameters must lie on the mesh's first device {dev0}, "
+                                 f"not {p.device}")
+        reps = replicate(state.params, devices)
+        nb = n // len(rows)
+        sums = [0.0, 0.0]
+        for r, row in enumerate(rows):
+            bands = split_width(w, row, _FNET_ALIGN, halo)
+            parts = _band_train_losses(reps, bands, lr_data[r * nb : (r + 1) * nb],
+                                       gt_data[r * nb : (r + 1) * nb], cfg.model_cfg, pix[0], warp[0], dev0)
+            sums = [a + b for a, b in zip(sums, parts)]
+        s = cfg.model_cfg.scale
+        counts = (n * t * h * s * w * s * c, n * (t - 1) * h * w * c)
+        loss_pix, loss_warp = (
+            weight * (total / count if mean else total)
+            for weight, total, count, mean in zip((cfg.pixel_weight, cfg.warping_weight), sums, counts,
+                                                  (pix[1], warp[1])))
+        loss = loss_pix + loss_warp
+        apply_gradients(state, loss, train_step.schedule)
+        logs = {"l_pix_G": loss_pix, "l_warp_G": loss_warp, "l_total": loss}
+        return state, {k: v.detach() for k, v in logs.items()}
+
+    return fn
+
+
+def _band_train_losses(reps: dict, bands: list[Band], lr_data, gt_data, cfg: egvsr.EGVSRConfig, pix_part,
+                       warp_part, dev0: torch.device) -> list:
+    """egvsr.forward_sequence and the VSR loss on the bands of one data
+    shard: the pixel and warp criteria summed over the bands' centres,
+    each on dev0.  It mirrors train.vsr.make_loss_fn, band by band."""
+    n, t, h, w, c = lr_data.shape
+    s = cfg.scale
+    xs, hr_flows, sums = [], [], [0.0, 0.0]
+    lr_prev_whole = lr_data[:, :-1].reshape(n * (t - 1), h, w, c)
+    lr_curr_whole = lr_data[:, 1:].reshape(n * (t - 1), h, w, c)
+    for band in bands:
+        p, bw = reps[band.device], band.hi - band.lo
+        centre = slice(band.c0 - band.lo, band.c1 - band.lo)
+        with on_device(band.device):
+            x = put(lr_data[:, :, :, band.lo : band.hi], band.device)
+            lr_prev = x[:, :-1].reshape(n * (t - 1), h, bw, c)
+            lr_curr = x[:, 1:].reshape(n * (t - 1), h, bw, c)
+            lr_flow = egvsr._lr_flow(p, lr_curr, lr_prev)
+            hr_flows.append(egvsr._upsample_flow(lr_flow, h, bw, cfg).reshape(n, t - 1, h * s, bw * s, 2))
+            # the warp loss on the band's LR centre, the previous LR frame
+            # read whole
+            lr_warp = backward_warp_columns(put(lr_prev_whole, band.device), lr_flow, band.lo)
+            y = put(lr_curr_whole[:, :, band.c0 : band.c1], band.device)
+            sums[1] = sums[1] + put(warp_part(lr_warp[:, :, centre], y), dev0)
+        xs.append(x)
+    hrs = []
+    for band, x in zip(bands, xs):
+        with on_device(band.device):
+            zero = x.new_zeros((n, h, band.hi - band.lo, s * s * c))
+            hrs.append([egvsr.srnet_apply(reps[band.device]["srnet"], x[:, 0], zero)])
+    for i in range(1, t):
+        hr_prev = gather_bands([hr[-1] for hr in hrs], bands, w, s * w, 2, dev0)
+        whole = {}
+        for band, x, hr, flow in zip(bands, xs, hrs, hr_flows):
+            if band.device not in whole:
+                whole[band.device] = put(hr_prev, band.device)
+            with on_device(band.device):
+                warped = backward_warp_columns(whole[band.device], flow[:, i - 1], s * band.lo)
+                hr.append(egvsr.srnet_apply(reps[band.device]["srnet"], x[:, i], space_to_depth(warped, s)))
+    for band, hr in zip(bands, hrs):
+        centre = slice(s * (band.c0 - band.lo), s * (band.c1 - band.lo))
+        with on_device(band.device):
+            gt = put(gt_data[:, :, :, s * band.c0 : s * band.c1], band.device)
+            sums[0] = sums[0] + put(pix_part(torch.stack(hr, dim=1)[:, :, :, centre], gt), dev0)
+    return sums

@@ -15,6 +15,7 @@ from .losses import (
 )
 from .schedules import cosine_annealing_restart, define_lr_schedule, fixed_lr, multistep_lr
 from .vsr import TrainState, VSRTrainConfig, create_train_state, make_train_step
+from .vsrgan import GANTrainState, VSRGANConfig, create_gan_state, make_gan_train_step
 from . import checkpoint, datasets, denoise, discriminators, metrics, model_summary, sisr, vgg, vsrgan
 
 __all__ = [
@@ -22,5 +23,6 @@ __all__ = [
     "vanilla_gan_loss", "lsgan_loss", "define_criterion",
     "fixed_lr", "multistep_lr", "cosine_annealing_restart", "define_lr_schedule",
     "VSRTrainConfig", "TrainState", "create_train_state", "make_train_step",
+    "VSRGANConfig", "GANTrainState", "create_gan_state", "make_gan_train_step",
     "checkpoint", "datasets", "denoise", "discriminators", "metrics", "model_summary", "sisr", "vgg", "vsrgan",
 ]

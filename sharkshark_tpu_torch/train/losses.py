@@ -20,6 +20,7 @@ __all__ = [
     "vanilla_gan_loss",
     "lsgan_loss",
     "define_criterion",
+    "criterion_parts",
 ]
 
 
@@ -63,10 +64,11 @@ _REGISTRY = {
 }
 
 
-def define_criterion(crit_opt: dict | None):
+def define_criterion(crit_opt: dict | None, reduction: str | None = None):
     """The criterion a config block names (reference optim/__init__.py:
     5-35), with the block's other keys but `type` and `weight` as keyword
-    arguments; None for a missing block."""
+    arguments; None for a missing block.  `reduction`, where given,
+    replaces the block's (criterion_parts asks for "sum")."""
     if crit_opt is None:
         return None
     name = crit_opt["type"]
@@ -74,8 +76,29 @@ def define_criterion(crit_opt: dict | None):
         raise ValueError(f"unknown criterion: {name}")
     fn = _REGISTRY[name]
     kwargs = {k: v for k, v in crit_opt.items() if k not in ("type", "weight")}
+    if reduction is not None:
+        kwargs["reduction"] = reduction
 
     def crit(x, y):
         return fn(x, y, **kwargs)
 
     return crit
+
+
+# the criteria that are a sum or a mean over elements of (x - y), each
+# with its default reduction (charbonnier_loss's and mse_loss's)
+_ELEMENTWISE = {"CB": "sum", "MSE": "mean"}
+
+
+def criterion_parts(crit_opt: dict):
+    """The criterion a config block names, split over parts of its
+    inputs: (part, mean), with part(x, y) the criterion's terms summed
+    over a part's elements and `mean` whether the whole criterion divides
+    that sum by the whole input's element count (its reduction is not
+    "sum").  Raises ValueError for a criterion that is no sum or mean
+    over elements (CosineSimilarity, the GAN objectives)."""
+    name = crit_opt["type"]
+    if name not in _ELEMENTWISE:
+        raise ValueError(f"criterion {name!r} does not split over parts of its inputs "
+                         f"(only the sums and means over elements do: {', '.join(_ELEMENTWISE)})")
+    return define_criterion(crit_opt, reduction="sum"), crit_opt.get("reduction", _ELEMENTWISE[name]) != "sum"

@@ -114,7 +114,11 @@ def create_train_state(
 
 
 def make_loss_fn(cfg: VSRTrainConfig = VSRTrainConfig()):
-    """Returns `loss_fn(params, lr_data, gt_data) -> (loss, logs)`."""
+    """Returns `loss_fn(params, lr_data, gt_data) -> (loss, logs)`, with
+    its config as `loss_fn.cfg`.  parallel.make_sharded_train_step reads
+    only that config: its `_band_train_losses` recomputes this loss band
+    by band (forward_sequence and the two criteria), so a change here
+    needs the same change there."""
     pix_crit = define_criterion(cfg.pixel_crit or {"type": "CB"})
     warp_crit = define_criterion(cfg.warping_crit or {"type": "CB"})
 
@@ -126,12 +130,17 @@ def make_loss_fn(cfg: VSRTrainConfig = VSRTrainConfig()):
         loss = loss_pix + loss_warp
         return loss, {"l_pix_G": loss_pix, "l_warp_G": loss_warp, "l_total": loss}
 
+    loss_fn.cfg = cfg
     return loss_fn
 
 
 def make_train_step(cfg: VSRTrainConfig = VSRTrainConfig(), schedule: Callable | None = None):
     """Returns `train_step(state, lr_data, gt_data) -> (state, logs)`,
     which updates `state` in place and returns it with detached logs.
+    The step exposes its loss function and its schedule as
+    `train_step.loss_fn` and `train_step.schedule`, which
+    parallel.make_sharded_train_step reads (a jitted JAX function is
+    transparent to its sharding; a closure is not).
 
     lr_data: (N, T, h, w, C) in [0,1]; gt_data: (N, T, h*s, w*s, C)."""
     sched = schedule or (lambda step: cfg.lr)
@@ -142,4 +151,5 @@ def make_train_step(cfg: VSRTrainConfig = VSRTrainConfig(), schedule: Callable |
         apply_gradients(state, loss, sched)
         return state, {k: v.detach() for k, v in logs.items()}
 
+    train_step.loss_fn, train_step.schedule = loss_fn, sched
     return train_step

@@ -49,6 +49,9 @@ def test_importing_the_port_loads_no_jax():
         "import sharkshark_tpu_torch.tools.export_torch_srvgg, sharkshark_tpu_torch.tools.export_torch_egvsr\n"
         "import sharkshark_tpu_torch.tools.export_torch_bsvd, sharkshark_tpu_torch.tools.quality_eval\n"
         "import sharkshark_tpu_torch.tools.export_model, sharkshark_tpu_torch.tools.bench_dispatch\n"
+        "import sharkshark_tpu_torch.tools.warp_fidelity, sharkshark_tpu_torch.tools.ingest_weights\n"
+        "import sharkshark_tpu_torch.tools.bench_matrix, sharkshark_tpu_torch.tools.mint_lpips\n"
+        "import sharkshark_tpu_torch.parallel, sharkshark_tpu_torch.ops, sharkshark_tpu_torch.models\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )
