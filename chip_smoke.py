@@ -5,6 +5,10 @@ path on the card.
 
     python3 chip_smoke.py
 
+Every phase that drives a single-device service drives it through its
+per-shape CUDA graphs (a step's signature runs eagerly once, is captured
+at its second call and replays after), with the launch counts exact.
+
 Phases (any failure exits non-zero, and nothing is caught):
   1. card and settings: name and power limit (nvidia-smi), TF32 off, the
      service's default routes (tsm_pair, conv_stack);
@@ -29,8 +33,10 @@ Phases (any failure exits non-zero, and nothing is caught):
      at L = 1, 2, 4; the skip rings updated in place, as the service
      does, and, once, copied), then the port's EsrganUpscalerService, 720p ->
      1440p with BSVD-32 denoise and SRVGG general-x4v3 (the repo's
-     minted weights), driven as the live pipeline drives it, with the
-     kernel launch counts read around each run: with the service's
+     minted weights), driven as the live pipeline drives it once two
+     streams of warm-up dispatches have taken it through its graphs
+     (every chunk of the timed stream but the drain's replays one), with
+     the kernel launch counts read around each run: with the service's
      defaults (the main path), with both routes on, and with K1 alone and
      the layer-by-layer body, held against each other by PSNR;
   5. the whole denoise step with both routes on, on the card (bf16)
@@ -143,6 +149,20 @@ Phases (any failure exits non-zero, and nothing is caught):
      --configs 3,0 --suites sr denoise --iters 2; tools/mint_lpips.py's
      training for 40 steps on seeded stills and its ranking check, on the
      card and the CPU;
+ 17. the single-device services' per-shape CUDA graphs
+     (upscale/jit_cache.py), held against the eager step functions driven
+     the same way on the same weights (identical bit for bit, or at least
+     55 dB): the main path's denoise service (its defaults, 720p ->
+     1440p, minted BSVD-32 and SRVGG, bf16) over 48 frames and the drain
+     at micro-batch 4, as the live pipeline drives it (16 K1 and 32 K4
+     launches a dispatch, delivered ms/frame over the replays), then a
+     second stream after reset_stream one dispatch at a time (host ms a
+     dispatch and the warm step's device ms/frame, eager and replayed;
+     the warm step holds two graphs, one a ring phase), and at micro-batch
+     8 with the SR tail in sub-batches of 4 (one warm graph); the SR-only
+     service over 8 micro-batches of 4; the EGVSR service over phase 6's
+     24 frames per frame (one K3 launch a frame) and chunked; each with
+     its peak memory;
 then one JSON line of kernel numbers, the card's name and power limit,
 and the result line last.  Exits 2 without a result when CUDA is
 unavailable or the script stands outside the repo checkout.
@@ -158,6 +178,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import inspect
 import io
 import json
@@ -403,6 +424,13 @@ def run_main_path(service_mod, counters, card: str, tsm_pair: bool, conv_stack: 
         stamps.append(time.perf_counter())
         got.append(entry)
 
+    # two streams of warm-up dispatches, as a server that has served two
+    # streams: the first runs each step eagerly once and captures the
+    # warm step's graphs, the second captures the cold chunks' (keyed by
+    # their frame index); the timed stream replays every chunk but the
+    # drain's (keyed by the stream's length, seen there first)
+    svc.warm_up()
+    warmed = graph_counts(svc)
     svc.on_queue = on_queue
     counters.reset()
     torch.cuda.reset_peak_memory_stats()
@@ -433,12 +461,16 @@ def run_main_path(service_mod, counters, card: str, tsm_pair: bool, conv_stack: 
     assert launches == want, f"denoise path ({route}): launches {launches}, expected {want}"
     last = outs[jobs - 1]
     assert last.std() > 5, "the output frames are flat"
+    graphs = graph_counts(svc)
+    for name in ("cold_step", "warm_step"):
+        assert graphs[name]["graphs"] == warmed[name]["graphs"] > 0, f"{name} did not replay: {warmed} -> {graphs}"
     # deliveries 0..jobs-1 are the live batches; batches >= SHIFT_NUM/batch
-    # ran the warm step, and with the in-flight ring each delivery waits
-    # for its own step, so their spacing is the warm step's time
+    # replayed the warm step's graphs, and with the in-flight ring each
+    # delivery waits for its own step, so their spacing is its time
     warm_s = (stamps[jobs - 1] - stamps[first_warm - 1]) / ((jobs - first_warm) * batch)
     res = {"route": route, "frames": total, "launches": launches, "chunks": jobs + bsvd.SHIFT_NUM // batch,
-           "wall_s": wall, "warm_ms_per_frame": warm_s * 1e3, "warm_fps": 1.0 / warm_s, "peak_mem_gb": peak_gb}
+           "wall_s": wall, "warm_ms_per_frame": warm_s * 1e3, "warm_fps": 1.0 / warm_s, "peak_mem_gb": peak_gb,
+           "graphs": graphs}
     log(f"denoise path ({route}): {total} frames of 1440x2560x3 uint8 ({n_live} live + {n_drained} "
         f"drained), launches {launches}, wall {wall:.3f} s, peak memory {peak_gb:.3f} GB")
     log(f"warm step ({route}): {res['warm_ms_per_frame']:.3f} ms/frame, {res['warm_fps']:.3f} frames/s "
@@ -588,7 +620,7 @@ def run_egvsr_path(service_mod, counters, card: str, chunked: bool = False, jobs
     # so from the second delivery on their spacing is the step's time
     per_frame_s = (stamps[jobs - 1] - stamps[0]) / ((jobs - 1) * batch)
     res = {"route": route, "frames": total, "launches": launches, "wall_s": wall,
-           "ms_per_frame": per_frame_s * 1e3, "fps": 1.0 / per_frame_s}
+           "ms_per_frame": per_frame_s * 1e3, "fps": 1.0 / per_frame_s, "graphs": graph_counts(svc)}
     log(f"EGVSR path ({route}): {total} frames of 1440x2560x3 uint8 from 720x1280 (HR 2880x5120), "
         f"backward_warp launches {launches}, wall {wall:.3f} s")
     log(f"EGVSR step ({route}): {res['ms_per_frame']:.3f} ms/frame, {res['fps']:.3f} frames/s "
@@ -725,6 +757,7 @@ def drive(svc, entry_cls, jobs: list, queued: bool = False) -> tuple[list, list,
     from sharkshark_tpu_torch.runtime import EOF
 
     dispatched, got, stamps = [], [], []
+    patched = "upscale_dispatch" in vars(svc)
     orig = svc.upscale_dispatch
 
     def counting(frames):
@@ -745,6 +778,10 @@ def drive(svc, entry_cls, jobs: list, queued: bool = False) -> tuple[list, list,
         svc.start()
     assert svc.wait_eof(timeout=900), "the service did not reach EOF"
     svc.join(timeout=60)
+    if patched:
+        svc.upscale_dispatch = orig
+    else:
+        del svc.upscale_dispatch
     assert svc._error is None and not svc.is_alive, f"service failed: {svc._error!r}"
     assert isinstance(got[-1], EOF), got[-1]
     return got[:-1], stamps[:-1], dispatched
@@ -1347,7 +1384,7 @@ def run_image_service(counters, card: str) -> dict:
             together = list(pool.map(post_together, blobs))
         wall_together = time.perf_counter() - t0
         launches = counters.read()
-        svc.upscale_dispatch = orig
+        del svc.upscale_dispatch
         lone_be, lone_url = backend(use_cache=False, weights=weights)
         t0 = time.perf_counter()
         lone = [post_file(f"{lone_url}/upscale/image", b, timeout=300) for b in blobs]
@@ -1414,7 +1451,7 @@ def run_image_service(counters, card: str) -> dict:
         step_reset()
         misses = load_test.run(url, fresh, workers=16, rounds=1, requests_per_round=len(fresh), unique=True)
         miss_launches = counters.read()
-        svc.upscale_dispatch = orig
+        del svc.upscale_dispatch
         misses.pop("rounds")
         assert misses["err"] == 0 and misses["hit"] == 0 and misses["ok"] == len(fresh), f"misses run: {misses}"
         assert sum(dispatched) == len(fresh), f"misses run: dispatches {dispatched}"
@@ -1424,6 +1461,10 @@ def run_image_service(counters, card: str) -> dict:
         misses["k4_launches"] = miss_launches["fused_conv_stack"]
         res["load_test"] = {"first_round_8_misses": cal, "frontend_hits": hits, "rounds": rounds,
                             "k4_launches": k4, "misses": misses}
+        # the SR step's graphs: one a dispatch shape (bucket and coalesced
+        # size) seen twice or more
+        res["graphs"] = graph_counts(svc)
+        log(f"image service's per-shape graphs after the load test: {res['graphs']}")
         for name, run in (("first round (8 misses, 120 frontend hits)", cal),
                           (f"{rounds} rounds of 256 frontend cache hits", hits),
                           (f"{len(fresh)} distinct images, misses only", misses)):
@@ -1432,6 +1473,11 @@ def run_image_service(counters, card: str) -> dict:
                 f"hit share {run['hit_share']:.4f} on {card}")
         log(f"misses run: {misses['dispatches']} dispatches (up to {misses['max_coalesced']} requests each), "
             f"{misses['k4_launches']} K4 launches")
+        # K4 is held against its plain version below at the shapes above;
+        # the sweep's small buckets add nothing to that
+        known = set(k4_shapes)
+        res["bucket_sweep"] = sweep_buckets(lone_be.get_pipeline(), lone_url, counters, card)
+        k4_shapes &= known
     finally:
         cs.fused_conv_stack = k4_call
         for httpd in servers:
@@ -1439,7 +1485,7 @@ def run_image_service(counters, card: str) -> dict:
             httpd.server_close()
         for b in services:
             if b._upscaler is not None:
-                b._upscaler.stop()
+                b._upscaler.close()
     step_reset()
     res["k4_launches"] = k4_total[0]
     # K4 against its plain version at the shapes the image path gave it:
@@ -1451,6 +1497,50 @@ def run_image_service(counters, card: str) -> dict:
     res["backend_cli"] = run_backend_cli(card)
     res["wall_s"] = time.perf_counter() - t_phase
     return res
+
+
+def sweep_buckets(svc, url: str, counters, card: str, extra: int = 4) -> dict:
+    """Phase 11's bucket sweep: through a backend without a result cache,
+    two distinct 64-pixel-high images for each of MAX_GRAPHS + `extra`
+    widths (each its own bucket), one at a time, twice over.  The SR
+    step captures the first MAX_GRAPHS signatures that recur and runs the
+    rest eagerly, so the second sweep must add no graph and no device
+    memory: what the graphs hold stays bounded however many buckets the
+    traffic brings."""
+    from sharkshark_tpu_torch.image_server.http_util import post_file
+    from sharkshark_tpu_torch.upscale.jit_cache import MAX_GRAPHS
+
+    cache = svc._multi_step
+    widths = [64 * k for k in range(1, MAX_GRAPHS + extra + 1)]
+    buckets = {request_sizes(w, 64)[0] for w in widths}
+    assert len(buckets) == len(widths), f"the widths share buckets: {sorted(buckets)}"
+    torch.cuda.synchronize()
+    rows = [{"graphs": cache.num_graphs, "signatures": cache.num_signatures,
+             "allocated_gb": torch.cuda.memory_allocated() / 1e9, "reserved_gb": torch.cuda.memory_reserved() / 1e9}]
+    k4 = counters.read()["fused_conv_stack"]
+    for sweep in range(2):
+        for w in widths:
+            for seed in range(2):
+                data = encode_image(make_frames(1, 64, w, seed=400 + 2 * w + seed)[0], "PNG")
+                status, body = post_file(f"{url}/upscale/image", data, timeout=300)
+                assert status == 200, body[:300]
+        torch.cuda.synchronize()
+        rows.append({"graphs": cache.num_graphs, "signatures": cache.num_signatures,
+                     "allocated_gb": torch.cuda.memory_allocated() / 1e9,
+                     "reserved_gb": torch.cuda.memory_reserved() / 1e9})
+    k4 = counters.read()["fused_conv_stack"] - k4
+    assert k4 == 32 * 4 * len(widths), f"bucket sweep: {k4} K4 launches"
+    assert rows[1]["graphs"] == rows[2]["graphs"] == MAX_GRAPHS, rows
+    grown = rows[2]["allocated_gb"] - rows[1]["allocated_gb"]
+    assert grown <= 0.016, f"the second sweep grew the memory held by {grown:.4f} GB: {rows}"
+
+    def trail(key: str, fmt: str = "{}") -> str:
+        return " -> ".join(fmt.format(r[key]) for r in rows)
+
+    log(f"image service bucket sweep, {len(widths)} buckets x 2 images, twice: graphs held {trail('graphs')} "
+        f"(cap {MAX_GRAPHS}), signatures {trail('signatures')}, device memory allocated "
+        f"{trail('allocated_gb', '{:.4f}')} GB, reserved {trail('reserved_gb', '{:.4f}')} GB on {card}")
+    return {"widths": widths, "cap": MAX_GRAPHS, "readings": rows, "k4_launches": k4}
 
 
 def run_backend_cli(card: str) -> dict:
@@ -2477,6 +2567,7 @@ def run_mesh_service(service_mod, counters, card: str, name: str, make, frames: 
     got, stamps, _ = drive(svc, service_mod.UpscalerQueueEntry,
                            [frames[i : i + batch] for i in range(0, len(frames), batch)])
     wall = time.perf_counter() - t0
+    del svc.upscale_dispatch  # `timed` refers back to the service
     out = np.concatenate([np.asarray(e.frames) for e in got])
     res = {"run": name, "frames": len(out), "launches": counters.read(), "launches_by_device": counters.by_device(),
            "wall_s": wall, "stamps": stamps, "dispatch_ms": [v * 1e3 for v in host_s],
@@ -2924,6 +3015,429 @@ def run_train_tools_phase(counters, bench_warp, card: str) -> dict:
     return res
 
 
+# -------------------------------------------------------------- phase 17
+
+
+def graph_counts(svc) -> dict:
+    """Signatures seen and graphs held by each of a service's ShapeCaches."""
+    from sharkshark_tpu_torch.upscale import ShapeCache
+
+    out = {}
+    for name in ("_cold_step", "_warm_step", "_flush_step", "_multi_step", "_step", "_chunk_step"):
+        cache = getattr(svc, name, None)
+        if isinstance(cache, ShapeCache):
+            out[name.strip("_")] = {"signatures": cache.num_signatures, "graphs": cache.num_graphs}
+    return out
+
+
+def assert_graphs_freed() -> None:
+    """The services dropped so far must have freed their graphs without
+    the cycle collector (by reference counting, or by close()): collect
+    what it finds unreachable, and fail if a ShapeCache that holds a
+    graph is among it."""
+    from sharkshark_tpu_torch.upscale import ShapeCache
+
+    gc.set_debug(gc.DEBUG_SAVEALL)
+    try:
+        gc.collect()
+        held = sum(o.num_graphs for o in gc.garbage if isinstance(o, ShapeCache))
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+        gc.collect()
+    assert not held, f"dropped services kept {held} graphs alive in reference cycles"
+
+
+def hold_equal(what: str, got: np.ndarray, want: np.ndarray, floor: float = 55.0) -> dict:
+    """Outputs through the graphs against the eager steps': identical, or
+    (a finding for PERF.md) at least `floor` dB."""
+    assert got.shape == want.shape and got.dtype == want.dtype == np.uint8, (got.shape, want.shape)
+    if np.array_equal(got, want):
+        res = {"identical": True, "differing_values": 0, "max_abs_diff": 0, "psnr_db": float("inf")}
+    else:
+        res = {"identical": False, "differing_values": int((got != want).sum()),
+               "max_abs_diff": int(np.abs(got.astype(np.int16) - want.astype(np.int16)).max()),
+               "psnr_db": psnr(got, want)}
+    log(f"{what}: through the graphs against the eager steps "
+        f"{'identical bit for bit' if res['identical'] else 'DIFFERENT'} ({res['differing_values']} values "
+        f"differ, max {res['max_abs_diff']}, PSNR {res['psnr_db']:.3f} dB)")
+    assert res["identical"] or res["psnr_db"] >= floor, f"{what}: PSNR {res['psnr_db']:.3f} dB below {floor}"
+    return res
+
+
+def back_to_back_ms(call, n: int = 6) -> float:
+    """Device ms of one call: n calls back to back between two CUDA events,
+    after two calls that put the device ahead of the host (both the eager
+    steps and the replays enqueue a step faster than the card runs it)."""
+    call()
+    call()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        call()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def step_ms(eager, replay) -> dict:
+    """back_to_back_ms of the eager step and of its replay, in passes
+    eager, replay, replay, eager."""
+    passes = {"eager": [], "replay": []}
+    for name in ("eager", "replay", "replay", "eager"):
+        passes[name].append(back_to_back_ms(eager if name == "eager" else replay))
+    return passes
+
+
+def timing_row(eager_host: tuple, replay_host: tuple, passes: dict, frames_per_call: int) -> dict:
+    """Host ms a dispatch and of the step's calls in it (medians, one
+    dispatch at a time on an idle device; eager_dispatches' and
+    service_sync's pairs) and the step's device ms/frame (the mean of
+    step_ms's two passes each), eager and replayed."""
+    eager_ms, replay_ms = (statistics.mean(passes[k]) for k in ("eager", "replay"))
+    row = {"host_ms_per_dispatch_eager": statistics.median(eager_host[0]),
+           "host_ms_per_dispatch_replay": statistics.median(replay_host[0]),
+           "step_host_ms_per_dispatch_eager": statistics.median(eager_host[1]),
+           "step_host_ms_per_dispatch_replay": statistics.median(replay_host[1]),
+           "host_ms_eager_all": eager_host[0], "host_ms_replay_all": replay_host[0],
+           "device_ms_per_frame_eager": eager_ms / frames_per_call,
+           "device_ms_per_frame_replay": replay_ms / frames_per_call, "device_ms_passes": passes}
+    row["device_replay_over_eager"] = replay_ms / eager_ms
+    return row
+
+
+def timing_text(row: dict) -> str:
+    return (f"host ms a dispatch eager {row['host_ms_per_dispatch_eager']:.3f} / replay "
+            f"{row['host_ms_per_dispatch_replay']:.3f} (its step calls {row['step_host_ms_per_dispatch_eager']:.3f} / "
+            f"{row['step_host_ms_per_dispatch_replay']:.3f}); device ms/frame of the step eager "
+            f"{row['device_ms_per_frame_eager']:.4f} / replay {row['device_ms_per_frame_replay']:.4f} "
+            f"(x{row['device_replay_over_eager']:.4f})")
+
+
+def eager_dispatches(step, frames: np.ndarray, batch: int, dev) -> tuple[list, tuple]:
+    """`step(frames on the device)` for each micro-batch, uploaded and its
+    result copied to the host as the service's dispatch does, one at a time
+    on an idle device: (host arrays, (host ms a dispatch, host ms of the
+    step's call)).  Each result is copied out of its pinned buffer, so
+    that the buffers recycle as they do behind a live stream."""
+    from sharkshark_tpu_torch.upscale import service as service_mod
+
+    outs, host, host_step = [], [], []
+    with torch.inference_mode():
+        for i in range(0, len(frames), batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x = service_mod._to_device(dev, frames[i : i + batch])
+            t1 = time.perf_counter()
+            out = step(x)
+            host_step.append((time.perf_counter() - t1) * 1e3)
+            copy = service_mod._HostCopy(out)
+            host.append((time.perf_counter() - t0) * 1e3)
+            outs.append(copy.numpy().copy())
+            del copy, out
+    return outs, (host, host_step)
+
+
+def service_sync(svc, counters, frames: np.ndarray, batch: int, step_name: str):
+    """One stream through a service, one dispatch at a time on an idle
+    device (each result copied out of its pinned buffer, as in
+    eager_dispatches), then its drain.  Returns (frames out, (host ms a
+    dispatch, host ms of its calls of the cache `step_name`), launches a
+    dispatch)."""
+    cache, in_step = getattr(svc, step_name), [0.0]
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        out = cache(*args)
+        in_step[0] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    setattr(svc, step_name, timed)
+    host, host_step, launches, outs = [], [], [], []
+    try:
+        for i in range(0, len(frames), batch):
+            before = counters.read()
+            in_step[0] = 0.0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dev, n = svc.upscale_dispatch(frames[i : i + batch])
+            host.append((time.perf_counter() - t0) * 1e3)
+            host_step.append(in_step[0])
+            outs.append(svc._fetch(dev, n).copy())
+            del dev
+            launches.append({k: v - before[k] for k, v in counters.read().items()})
+        outs += [np.asarray(e.frames) for e in svc.proc_eof()]
+    finally:
+        setattr(svc, step_name, cache)
+    return np.concatenate(outs), (host, host_step), launches
+
+
+def drive_counted(svc, counters, jobs: list):
+    """drive() with the launches of each dispatch read around it."""
+    from sharkshark_tpu_torch.upscale import service as service_mod
+
+    per_dispatch = []
+    orig = svc.upscale_dispatch
+
+    def counting(frames):
+        before = counters.read()
+        out = orig(frames)
+        per_dispatch.append({k: v - before[k] for k, v in counters.read().items()})
+        return out
+
+    svc.upscale_dispatch = counting
+    try:
+        got, stamps, _ = drive(svc, service_mod.UpscalerQueueEntry, jobs)
+    finally:
+        del svc.upscale_dispatch
+    return np.concatenate([np.asarray(e.frames) for e in got]), stamps, per_dispatch
+
+
+def run_graph_denoise(counters, card: str, defaults: dict, n: int = 48) -> dict:
+    """The main path's service (its defaults, 720p -> 1440p, BSVD-32 and
+    SRVGG general-x4v3 minted, bf16) over n frames and the drain, through
+    its graphs, held against the eager steps (steps.upscale_batch_denoise,
+    warm chunks in place, ring_to_fifo_state, steps.flush_batch_denoise)
+    driven the same way on the same weights.  Micro-batch 4: driven as the
+    live pipeline drives it (launches a dispatch, delivered ms/frame), then
+    a second stream after reset_stream one dispatch at a time (host ms a
+    dispatch, eager against replay); the warm step holds two graphs.
+    Micro-batch 8 (SR in sub-batches of 4): stream 1 one dispatch at a
+    time too; the warm step holds one graph.  Then the warm step alone,
+    eager and replayed, back to back on frames already on the card."""
+    from sharkshark_tpu_torch.models import bsvd, srvgg
+    from sharkshark_tpu_torch.upscale import service as service_mod
+    from sharkshark_tpu_torch.upscale import steps
+
+    res = {}
+    frames = make_frames(n, 720, 1280, seed=71, pan=2)
+    for batch in (4, 8):
+        svc = service_mod.EsrganUpscalerService(
+            lr_level=3, output_shape=(1440, 2560), denoising=True, denoise_rate=0.75, batch_size=batch,
+            weights=str(MINTED / "srvgg-derived-x4.pth"), denoise_weights=str(MINTED / "bsvd-derived-32.pth"),
+            **defaults)
+        svc.proc_init()
+        spec, cfg, sub = svc.spec, svc.bsvd_cfg, 4 if batch > 4 else None
+
+        def sr_apply(p, x):
+            return srvgg.apply_down_rational(p, x, 2, 1, conv_stack=svc.conv_stack)
+
+        def step(x, box):
+            st = box["state"]
+            out, box["state"] = steps.upscale_batch_denoise(sr_apply, svc._params, st, x, spec, cfg,
+                                                            warm=st["t"] >= bsvd.SHIFT_NUM, sr_sub_batch=sub,
+                                                            inplace=True)
+            return out
+
+        box = {"state": steps.init_denoise_state(1, spec, cfg, device=svc.device)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        outs, eager_host = eager_dispatches(lambda x: step(x, box), frames, batch, svc.device)
+        with torch.inference_mode():
+            box["state"] = bsvd.ring_to_fifo_state(box["state"], cfg)
+
+        def flush(x):
+            out, box["state"] = steps.flush_batch_denoise(sr_apply, svc._params, box["state"], x, n, spec, cfg)
+            return out
+
+        outs += eager_dispatches(flush, frames[-bsvd.SHIFT_NUM :], batch, svc.device)[0]
+        eager_out = np.concatenate(outs)
+        row = {"batch": batch, "frames": n, "eager_peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        cold, jobs = bsvd.SHIFT_NUM // batch, n // batch
+        per_chunk = {"tsm_conv": 16, "tsm_conv_pair": 0, "backward_warp": 0,
+                     "fused_conv_stack": 32 * (batch // 4) if defaults["conv_stack"] else 0}
+        torch.cuda.reset_peak_memory_stats()
+        if batch == 4:
+            # stream 1 as the live pipeline drives it
+            counters.reset()
+            stream1, stamps, per_dispatch = drive_counted(svc, counters, [frames[i : i + batch]
+                                                                          for i in range(0, n, batch)])
+            total = counters.read()
+            want = denoise_launches(cold, jobs - cold, bsvd.SHIFT_NUM // batch, defaults["tsm_pair"],
+                                    defaults["conv_stack"])
+            assert total == want, f"denoise service through its graphs: launches {total}, expected {want}"
+            assert all(d == per_chunk for d in per_dispatch), f"launches a dispatch: {per_dispatch}"
+            row["stream1"] = hold_equal(f"denoise service, micro-batch {batch}, stream 1", stream1, eager_out)
+            # each ring phase's warm step runs eagerly once, is captured at
+            # its second call and replays after
+            first_replay = cold + 2 * (8 // batch)
+            row["delivered_ms_per_frame_replay"] = ((stamps[jobs - 1] - stamps[first_replay - 1])
+                                                    / ((jobs - first_replay) * batch) * 1e3)
+            row["launches"], row["launches_per_dispatch"] = total, per_dispatch[-1]
+        else:
+            # stream 1 one dispatch at a time
+            stream1, _, per_dispatch = service_sync(svc, counters, frames, batch, "_warm_step")
+            assert all(d == per_chunk for d in per_dispatch), f"launches a dispatch: {per_dispatch}"
+            row["stream1"] = hold_equal(f"denoise service, micro-batch {batch}, stream 1", stream1, eager_out)
+        # stream 2, whose warm dispatches all replay
+        svc.reset_stream()
+        out2, host2, launches2 = service_sync(svc, counters, frames, batch, "_warm_step")
+        row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        assert all(d == per_chunk for d in launches2), f"launches a dispatch: {launches2}"
+        row["stream2"] = hold_equal(f"denoise service, micro-batch {batch}, stream 2 after reset_stream", out2,
+                                    eager_out)
+        assert np.array_equal(out2, stream1), "the second stream differs from the first"
+        row["graphs"] = graph_counts(svc)
+        assert row["graphs"]["warm_step"]["graphs"] == 8 // batch, row["graphs"]
+        # the warm step alone, on frames already on the card: eager on a
+        # fresh state taken past its cold chunks, the graphs on the
+        # service's (its values the drained stream's; the work is the same)
+        with torch.inference_mode():
+            x_dev = service_mod._to_device(svc.device, frames[:batch])
+            warm_box = {"state": steps.init_denoise_state(1, spec, cfg, device=svc.device)}
+            while warm_box["state"]["t"] < bsvd.SHIFT_NUM:
+                step(x_dev, warm_box)
+            passes = step_ms(lambda: step(x_dev, warm_box),
+                             lambda: svc._den_call(svc._warm_step, x_dev, svc._warm_t(batch)))
+        row.update(timing_row(tuple(v[cold:] for v in eager_host), tuple(v[cold:] for v in host2), passes, batch))
+        res[f"batch{batch}"] = row
+        log(f"denoise service through its graphs, micro-batch {batch}, {n} frames + drain: graphs "
+            f"{row['graphs']}; warm dispatches: {timing_text(row)}"
+            + (f"; delivered {row['delivered_ms_per_frame_replay']:.3f} ms/frame over the replays" if batch == 4
+               else "")
+            + f"; peak memory eager {row['eager_peak_mem_gb']:.3f} GB, graphs {row['peak_mem_gb']:.3f} GB on {card}")
+        svc.close()
+        del svc, box, warm_box, x_dev
+    return res
+
+
+def run_graph_sr(counters, card: str, conv_stack: int, jobs: int = 8, batch: int = 4) -> dict:
+    """The SR-only service (minted SRVGG, conv_stack as the main path's) at
+    720p -> 1440p over `jobs` micro-batches through its graph, held the
+    same way against steps.upscale_multi: as the live pipeline drives it,
+    then a second pass one dispatch at a time; then the step alone, eager
+    and replayed, back to back."""
+    from sharkshark_tpu_torch.models import srvgg
+    from sharkshark_tpu_torch.upscale import service as service_mod
+    from sharkshark_tpu_torch.upscale import steps
+
+    svc = service_mod.EsrganUpscalerService(lr_level=3, output_shape=(1440, 2560), denoising=False, batch_size=batch,
+                                            weights=str(MINTED / "srvgg-derived-x4.pth"), conv_stack=conv_stack)
+    svc.proc_init()
+    frames = make_frames(jobs * batch, 720, 1280, seed=73)
+
+    def step(x):
+        return steps.upscale_multi(lambda p, y: srvgg.apply_down_rational(p, y, 2, 1, conv_stack=svc.conv_stack),
+                                   svc._sr_params, x, svc.spec)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    outs, eager_host = eager_dispatches(step, frames, batch, svc.device)
+    eager_out = np.concatenate(outs)
+    row = {"batch": batch, "frames": jobs * batch, "eager_peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    out1, stamps, per_dispatch = drive_counted(svc, counters, [frames[i : i + batch]
+                                                               for i in range(0, len(frames), batch)])
+    want = {"tsm_conv": 0, "tsm_conv_pair": 0, "backward_warp": 0, "fused_conv_stack": 32}
+    assert all(d == want for d in per_dispatch), f"SR-only launches a dispatch: {per_dispatch}"
+    row["stream1"] = hold_equal("SR-only service, pass 1", out1, eager_out)
+    # job 0 runs eagerly, job 1 is captured, the rest replay
+    row["delivered_ms_per_frame_replay"] = (stamps[-1] - stamps[1]) / ((jobs - 2) * batch) * 1e3
+    out2, host2, _ = service_sync(svc, counters, frames, batch, "_multi_step")
+    row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    row["stream2"] = hold_equal("SR-only service, pass 2", out2, eager_out)
+    row["graphs"] = graph_counts(svc)
+    assert row["graphs"]["multi_step"] == {"signatures": 1, "graphs": 1}, row["graphs"]
+    with torch.inference_mode():
+        x_dev = service_mod._to_device(svc.device, frames[:batch])
+        passes = step_ms(lambda: step(x_dev), lambda: svc._multi_step(svc._sr_params, x_dev))
+    row.update(timing_row(eager_host, host2, passes, batch))
+    log(f"SR-only service through its graph, {jobs} jobs of {batch}: graphs {row['graphs']}; {timing_text(row)}; "
+        f"delivered {row['delivered_ms_per_frame_replay']:.3f} ms/frame "
+        f"over the replays; peak memory eager {row['eager_peak_mem_gb']:.3f} GB, graphs {row['peak_mem_gb']:.3f} GB "
+        f"on {card}")
+    svc.close()
+    return row
+
+
+def run_graph_egvsr(counters, card: str, chunked: bool, jobs: int = 6, batch: int = 4) -> dict:
+    """The EGVSR service (minted FRNet, 720p -> 1440p, cut_threshold 0.12)
+    per frame or chunked over phase 6's frames through its graph (one K3
+    launch a frame), held the same way against steps.egvsr_upscale_step /
+    egvsr_upscale_chunk: as the live pipeline drives it, then a second
+    stream (the recurrent state zeroed) one dispatch at a time; then the
+    step alone, eager and replayed, back to back."""
+    from sharkshark_tpu_torch.models import egvsr
+    from sharkshark_tpu_torch.upscale import service as service_mod
+    from sharkshark_tpu_torch.upscale import steps
+
+    route = "chunked" if chunked else "per-frame"
+    svc = service_mod.EgvsrUpscalerService(lr_level=3, output_shape=(1440, 2560), chunked=chunked,
+                                           weights=str(MINTED / "egvsr-derived-x4.pth"))
+    svc.proc_init()
+    frames = make_frames(jobs * batch, 720, 1280, seed=13)
+
+    def fresh():
+        return egvsr.init_recurrent_state(1, *svc.lr_shape, svc.cfg, svc.compute_dtype, svc.device)
+
+    kw = dict(cut_threshold=svc.cut_threshold, cfg=svc.cfg)
+    fn = steps.egvsr_upscale_chunk if chunked else steps.egvsr_upscale_step
+    box = {"state": fresh()}
+
+    def one(x):
+        out, box["state"] = fn(svc._params, box["state"], x, svc.spec, **kw)
+        return out
+
+    def step(x):
+        return one(x) if chunked else torch.cat([one(x[i : i + 1]) for i in range(len(x))])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    outs, eager_host = eager_dispatches(step, frames, batch, svc.device)
+    eager_out = np.concatenate(outs)
+    row = {"route": route, "frames": jobs * batch, "eager_peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    out1, stamps, per_dispatch = drive_counted(svc, counters, [frames[i : i + batch]
+                                                               for i in range(0, len(frames), batch)])
+    want = {"tsm_conv": 0, "tsm_conv_pair": 0, "backward_warp": batch, "fused_conv_stack": 0}
+    assert all(d == want for d in per_dispatch), f"EGVSR ({route}) launches a dispatch: {per_dispatch}"
+    row["stream1"] = hold_equal(f"EGVSR service ({route}), stream 1", out1, eager_out)
+    # per frame: frames 0 and 1 (job 0) run eagerly and are captured;
+    # chunked: jobs 0 and 1
+    first_replay = 2 if chunked else 1
+    row["delivered_ms_per_frame_replay"] = ((stamps[-1] - stamps[first_replay - 1])
+                                            / ((jobs - first_replay) * batch) * 1e3)
+    svc.reset_stream()
+    out2, host2, _ = service_sync(svc, counters, frames, batch, "_chunk_step" if chunked else "_step")
+    row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    row["stream2"] = hold_equal(f"EGVSR service ({route}), stream 2", out2, eager_out)
+    row["graphs"] = graph_counts(svc)
+    name = "chunk_step" if chunked else "step"
+    assert row["graphs"][name] == {"signatures": 1, "graphs": 1}, row["graphs"]
+    cache = svc._chunk_step if chunked else svc._step
+    with torch.inference_mode():
+        x_dev = service_mod._to_device(svc.device, frames[:batch] if chunked else frames[:1])
+
+        def replay():
+            _, svc._state = cache(svc._params, svc._state, x_dev)
+
+        passes = step_ms(lambda: one(x_dev), replay)
+    row.update(timing_row(eager_host, host2, passes, batch if chunked else 1))
+    log(f"EGVSR service ({route}) through its graph, {jobs * batch} frames: graphs {row['graphs']}; dispatches of "
+        f"{batch} frames: {timing_text(row)}; delivered "
+        f"{row['delivered_ms_per_frame_replay']:.3f} ms/frame over the replays; peak memory eager "
+        f"{row['eager_peak_mem_gb']:.3f} GB, graphs {row['peak_mem_gb']:.3f} GB on {card}")
+    svc.close()
+    return row
+
+
+def run_graph_phase(counters, card: str, defaults: dict) -> dict:
+    """Phase 17: the single-device services' per-shape CUDA graphs."""
+    t_phase = time.perf_counter()
+    res, walls = {"card": card}, {}
+    for name, run in (("denoise", lambda: run_graph_denoise(counters, card, defaults)),
+                      ("sr_only", lambda: run_graph_sr(counters, card, defaults["conv_stack"])),
+                      ("egvsr", lambda: run_graph_egvsr(counters, card, chunked=False)),
+                      ("egvsr_chunked", lambda: run_graph_egvsr(counters, card, chunked=True))):
+        t0 = time.perf_counter()
+        res[name] = run()
+        walls[name] = time.perf_counter() - t0
+    res["wall_s"], res["wall_s_by_part"] = time.perf_counter() - t_phase, walls
+    return res
+
+
 def get_bytes(url: str) -> bytes:
     import urllib.request
 
@@ -3062,6 +3576,7 @@ def main() -> int:
     log(f"phase 11 took {image_res['wall_s']:.1f} s")
     log(json.dumps({"image_service": image_res}))
 
+    assert_graphs_freed()
     # 12. the training driver's three recipes on the card, then 13. the
     # GAN recipe, the variants and the tools, in one temporary directory:
     # phase 13 derives its data from phase 12's stills and exports its
@@ -3076,6 +3591,7 @@ def main() -> int:
         log(f"phase 13 took {gan_res['wall_s']:.1f} s")
         log(json.dumps({"gan_variants_tools": gan_res}))
 
+    assert_graphs_freed()
     # 14. BSVD-64 through the service (K1 at C=128, 360x640), the
     # per-frame denoise stream, SRVGG's integer-ratio epilogues and the
     # exported programs
@@ -3084,6 +3600,7 @@ def main() -> int:
     log(f"phase 14 took {bsvd64_res['wall_s']:.1f} s")
     log(json.dumps({"bsvd64_single_epilogues_export": bsvd64_res}))
 
+    assert_graphs_freed()
     # 15. the sharded serving paths (parallel/): the denoise, SR-only and
     # EGVSR services on meshes, the CLI with --mesh, K1 and K4 on each card
     mesh_res = run_mesh_phase(service_mod, counters, tsm, cs, bench, bench_cs, card, defaults, egvsr_res,
@@ -3091,11 +3608,19 @@ def main() -> int:
     log(f"phase 15 took {mesh_res['wall_s']:.1f} s")
     log(json.dumps({"mesh": mesh_res}))
 
+    assert_graphs_freed()
     # 16. the sharded train step at full width, warp_fidelity on K3 and
     # the other tools
     tools_res = run_train_tools_phase(counters, bench_warp, card)
     log(f"phase 16 took {tools_res['wall_s']:.1f} s")
     log(json.dumps({"train_tools": tools_res}))
+
+    assert_graphs_freed()
+    # 17. the single-device services' per-shape CUDA graphs against the
+    # eager steps
+    graph_res = run_graph_phase(counters, card, defaults)
+    log(f"phase 17 took {graph_res['wall_s']:.1f} s")
+    log(json.dumps({"graphs": graph_res}))
 
     # the kernels line: launches from the main path's run, or, for a route
     # that is off by default, from the run with the routes on

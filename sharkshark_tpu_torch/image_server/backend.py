@@ -26,6 +26,7 @@ import itertools
 import queue
 import threading
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -131,10 +132,12 @@ class ImageBackend:
     def get_pipeline(self):
         with self._upscaler_lock:
             if self._upscaler is None:
-                # each worker's results and EOF name the worker they came from
+                # each worker's results and EOF name the worker they came
+                # from, by a weak reference: a strong one would make a
+                # cycle that keeps a replaced worker's device memory
                 owner: list = []
-                self._upscaler = self.upscaler_factory(lambda entry: self._on_result(entry, owner[0]))
-                owner.append(self._upscaler)
+                self._upscaler = self.upscaler_factory(lambda entry: self._on_result(entry, owner[0]()))
+                owner.append(weakref.ref(self._upscaler))
                 self._upscaler.start()
                 log.info("upscaler started")
             return self._upscaler
@@ -144,6 +147,10 @@ class ImageBackend:
             # a worker that failed is replaced at once, even while its
             # thread is still on its way out
             if self._upscaler is not None and (self._upscaler._dead or not self._upscaler.is_alive):
+                if not self._upscaler.is_alive:
+                    # its error's traceback refers back to it: free its
+                    # graphs now, not when the cycle is collected
+                    self._upscaler.close()
                 self._upscaler = None
             self.get_pipeline()
 

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..models import fsrcnn, torch_import, zoo
-from ..upscale import tile_upscale
+from ..upscale import enable_persistent_cache, tile_upscale
 from ..utils import get_logger, resolve_device
 
 __all__ = ["upscale_array", "main"]
@@ -89,6 +89,7 @@ def main(argv=None) -> None:
 
     from PIL import Image
 
+    enable_persistent_cache()
     img = np.asarray(Image.open(args.input).convert("RGB"), np.float32) / 255.0
     t0 = time.perf_counter()
     out = upscale_array(img, model=args.model, model_name=args.model_name, weights=args.weights,

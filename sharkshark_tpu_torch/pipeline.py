@@ -25,6 +25,7 @@ import json
 import math
 import queue
 import time
+import weakref
 
 from .runtime import EOF
 from .runtime.profiler import Profiler
@@ -36,6 +37,21 @@ from .utils import get_logger
 __all__ = ["UpscalePipeline"]
 
 log = get_logger("pipeline")
+
+
+def _weak(method):
+    """`method` called through a weak reference to its pipeline: a stage
+    that holds the pipeline's callback does not keep the pipeline alive,
+    so a dropped pipeline, its stages and its upscaler's graphs are freed
+    without the cycle collector."""
+    ref = weakref.WeakMethod(method)
+
+    def call(entry):
+        bound = ref()
+        if bound is not None:
+            bound(entry)
+
+    return call
 
 
 class UpscalePipeline:
@@ -96,7 +112,7 @@ class UpscalePipeline:
             device=device,
             **upscaler_kwargs,
         )
-        self.upscaler.on_queue = self.upscaler_on_queue
+        self.upscaler.on_queue = _weak(self.upscaler_on_queue)
 
         self.recoder = recoder or Recoder(
             url=url,
@@ -108,7 +124,7 @@ class UpscalePipeline:
             output_shape=self.upscaler.lr_shape,
             overlay=overlay,
         )
-        self.recoder.on_queue = self.recoder_on_queue
+        self.recoder.on_queue = _weak(self.recoder_on_queue)
         if getattr(self.recoder, "output_shape", None) is None:
             # injected recoders still resize to the processing ladder
             self.recoder.output_shape = self.upscaler.lr_shape
@@ -121,7 +137,7 @@ class UpscalePipeline:
             pix_fmt=pix_fmt,
             overlay=overlay,
         )
-        self.streamer.on_queue = self.streamer_on_queue
+        self.streamer.on_queue = _weak(self.streamer_on_queue)
 
         self.frame_step = 0
         self.last_reported = self.last_streamed = time.time()

@@ -67,9 +67,10 @@ class BaseService:
         # could not use — consumed before job_queue, preserving order
         self._stash: list = []
         self.name = name or type(self).__name__
-        self._thread = threading.Thread(
-            target=self._thread_main, daemon=True, name=self.name
-        )
+        # made by start(): a thread that refers to the service, made here,
+        # would keep a service that never starts (and the device memory
+        # it holds) alive until the cycle collector runs
+        self._thread: threading.Thread | None = None
         self._started = False
         self._dead = False
         self._error: BaseException | None = None
@@ -79,6 +80,9 @@ class BaseService:
 
     def start(self) -> None:
         self._started = True
+        self._thread = threading.Thread(
+            target=self._thread_main, daemon=True, name=self.name
+        )
         self._thread.start()
 
     def stop(self) -> None:
@@ -106,7 +110,7 @@ class BaseService:
 
     @property
     def is_alive(self) -> bool:
-        return self._thread.is_alive()
+        return self._thread is not None and self._thread.is_alive()
 
     def check_proc(self) -> None:
         if self._started and self._dead:

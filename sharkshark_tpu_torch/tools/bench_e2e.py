@@ -118,7 +118,6 @@ def _fake_ffmpeg(tmp: Path) -> tuple[Path, Path]:
 def run_pass(args, src: Path, n_frames: int, source_fps: float, paced: bool) -> dict:
     """One run of a fresh, warmed-up pipeline over n_frames source frames
     emitted at source_fps (0 = as fast as the pipeline takes them)."""
-    from ..models import bsvd
     from ..pipeline import UpscalePipeline
 
     pipe = UpscalePipeline(
@@ -130,13 +129,7 @@ def run_pass(args, src: Path, n_frames: int, source_fps: float, paced: bool) -> 
     )
     svc = pipe.upscaler
     t_warm = time.perf_counter()
-    svc.proc_init()
-    dummy = np.zeros((svc.batch_size, *svc.lr_shape, 3), np.uint8)
-    # past SHIFT_NUM frames the denoise path runs its warm step
-    for _ in range(2 + (0 if args.no_denoise else bsvd.SHIFT_NUM // svc.batch_size + 1)):
-        svc.upscale(dummy)
-    if svc.denoising:
-        svc.reset_stream()
+    svc.warm_up()
     warmup_s = time.perf_counter() - t_warm
 
     # (wall time, frames, captured_at, stage seconds) per delivery
@@ -184,9 +177,11 @@ def run_pass(args, src: Path, n_frames: int, source_fps: float, paced: bool) -> 
 def run(argv: list[str] | None = None) -> list[dict]:
     """Both passes; prints the rows as JSON lines and returns them."""
     args = build_parser().parse_args(argv)
+    from ..upscale import enable_persistent_cache
     from ..utils import resolve_device
 
     resolve_device(args.device)
+    enable_persistent_cache()
     card = card_line(args.device)
     with tempfile.TemporaryDirectory(prefix="bench_e2e") as tmp:
         fake, src = _fake_ffmpeg(Path(tmp))

@@ -25,11 +25,12 @@ row as one {"matrix": [...]} line:
 Each row carries the device and the card's name and power limit
 (nvidia-smi; null on the CPU).  Frames are zeros, as the JAX tool's
 are; weights are seeded (the rate does not depend on them).  Each suite
-runs one call to warm up before its timed calls.
+warms its service up (warm_up) before its timed calls: the first call of
+a step builds, the second captures its CUDA graph (upscale/jit_cache.py).
 
-The JAX tool enables its persistent compilation cache first; the port
-has nothing to enable: the kernels' on-disk build cache
-(ops/_build.py::_lib_path, keyed by the source's hash) plays that part.
+It enables the persistent cache first, as the JAX tool does: here the
+kernels' on-disk build cache (upscale/jit_cache.py), keyed by the
+source's hash.
 Computes in bf16 on the card and in float32 with `--device cpu` (the
 tests); without it a host without CUDA raises.
 """
@@ -45,7 +46,7 @@ import torch
 
 from ..models import egvsr
 from ..ops.warp import backward_warp_fast
-from ..upscale import levels
+from ..upscale import enable_persistent_cache, levels
 from ..upscale import service as service_mod
 from ..utils import resolve_device
 from .bench_e2e import card_line
@@ -93,9 +94,8 @@ def bench_sr(configs: list[str], batch: int, iters: int, dev: torch.device, card
         lr, hr = levels.LR_LEVELS[lr_level], levels.HR_LEVELS[hr_level]
         svc = service_mod.EsrganUpscalerService(lr_level=lr_level, output_shape=hr, denoising=False,
                                                 batch_size=batch, compute_dtype=_dtype(dev), device=dev)
-        svc.proc_init()
+        svc.warm_up()
         frames = np.zeros((batch, *lr, 3), np.uint8)
-        svc.upscale(frames)  # build and warm
         dt = _time_dispatches(svc, frames, iters)
         rows.append(_row({"lr_level": lr_level, "hr_level": hr_level, "lr": f"{lr[0]}x{lr[1]}",
                           "out": f"{hr[0]}x{hr[1]}", "fused_epilogue": fused_ratio(lr, hr),
@@ -118,8 +118,8 @@ def bench_egvsr(iters: int, dev: torch.device, card: str | None) -> list[dict]:
     for lr_level in (1, 2, 3):
         h, w = levels.LR_LEVELS[lr_level]
         svc = _egvsr_service(dev, lr_level)
+        svc.warm_up(batch=1)
         frame = np.zeros((1, h, w, 3), np.uint8)
-        svc.upscale(frame)
         ms = _time_dispatches(svc, frame, iters) / iters * 1e3
         rows.append(_row({"model": "egvsr", "lr": f"{h}x{w}", "out": f"{h * 4}x{w * 4}",
                           "ms_per_frame": round(ms, 1), "fps": round(1000 / ms, 2)}, dev, card))
@@ -156,16 +156,14 @@ def bench_cuts(iters: int, dev: torch.device, card: str | None, cut_every: int =
     rows = []
     for thr in (0.12, None):
         svc = _egvsr_service(dev, 3, weights, thr)
-        svc.upscale(frames[0])
-        svc.upscale(frames[cut_every])
-        svc = _egvsr_service(dev, 3, weights, thr)  # a fresh stream for the sustained pass
+        svc.warm_up(batch=1)
         t0 = time.perf_counter()
         out = None
         for f in frames:
             out = svc.upscale_dispatch(f)
         svc._fetch(*out)
         sustained = (time.perf_counter() - t0) / len(frames) * 1e3
-        svc = _egvsr_service(dev, 3, weights, thr)
+        svc.reset_stream()
         per = []
         for f in frames:
             t1 = time.perf_counter()
@@ -195,16 +193,12 @@ def bench_cuts(iters: int, dev: torch.device, card: str | None, cut_every: int =
 def bench_denoise(iters: int, batch: int, dev: torch.device, card: str | None) -> list[dict]:
     """The production denoise path (chunked BSVD-32 + SRVGG + post),
     LR level 3 -> 1440p, timed once the stream is warm."""
-    from ..models import bsvd
-
     lr = levels.LR_LEVELS[3]
     out = levels.HR_LEVELS[0]
     svc = service_mod.EsrganUpscalerService(lr_level=3, output_shape=out, denoising=True, denoise_rate=1.0,
                                             batch_size=batch, compute_dtype=_dtype(dev), device=dev)
-    svc.proc_init()
+    svc.warm_up()
     frames = np.zeros((batch, *lr, 3), np.uint8)
-    for _ in range(-(-bsvd.SHIFT_NUM // batch) + 1):
-        svc.upscale(frames)  # cold, then the first warm chunk
     dt = _time_dispatches(svc, frames, iters)
     return [_row({"model": "realesrgan+bsvd", "lr": f"{lr[0]}x{lr[1]}", "out": f"{out[0]}x{out[1]}",
                   "fps": round(iters * batch / dt, 2)}, dev, card)]
@@ -227,6 +221,7 @@ def build_parser() -> argparse.ArgumentParser:
 def run(argv=None) -> list[dict]:
     args = build_parser().parse_args(argv)
     dev = resolve_device(args.device)
+    enable_persistent_cache()
     card = card_line(dev.type)
     extra = []
     if "egvsr" in args.suites:

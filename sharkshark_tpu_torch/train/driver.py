@@ -498,6 +498,10 @@ def main(argv=None):
     p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu runs the plain versions)")
     args = p.parse_args(argv)
     dev = resolve_device(args.device)
+    # the kernels' on-disk build cache, which the services use too
+    from ..upscale.jit_cache import enable_persistent_cache
+
+    enable_persistent_cache()
     opt = load_config(args.config)
     return {"train": train, "test": test, "profile": profile}[args.mode](opt, device=dev)
 

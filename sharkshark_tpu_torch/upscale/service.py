@@ -22,13 +22,28 @@ factories as host tensors and are uploaded band by band; the outputs
 come back whole on the mesh's first device and leave through the same
 host copy.
 
+Without a mesh, every device step goes through a ShapeCache
+(jit_cache.py), as the JAX package's jitted steps do: the denoise chunk
+cold and warm and its flush with the BSVD state donated, the SR-only
+micro-batch, and the EGVSR step and chunk with their recurrent state
+donated.  On the card each signature's first call runs eagerly, its
+second captures a CUDA graph and every later one replays it; on the CPU
+they all run eagerly.  The graphs of one service share one GraphPool
+(memory pool and static buffers); the weights are fixed arguments, read
+where they lie (new values go into them in place).  The cold chunks and the flush take
+their frame index as a host int, so each of their signatures comes once
+a stream; the warm chunk reads the frame index only through the skip
+rings' slot, so its cache is keyed by that ring phase (one graph a
+phase: 8 / T of them where the micro-batch T divides the 8-frame ring,
+two at micro-batch 4, one at 8).
+
 On the GPU a dispatch enqueues the step on the current CUDA stream, then
 a non_blocking copy of the result into pinned host memory and an event;
 the fetch waits on that event only.  Tail micro-batches are padded to
 batch_size and sliced after, as in the JAX package; coalesced batches
-larger than batch_size run at their own size (eager PyTorch keeps no
-per-shape executables, so the JAX package's power-of-two padding has no
-purpose here).
+larger than batch_size run at their own size, each its own signature
+(the JAX package's power-of-two padding bounds its compiles; a graph's
+capture is cheap beside them).
 """
 
 from __future__ import annotations
@@ -47,6 +62,7 @@ import torch
 from ..models import bsvd, egvsr, fsrcnn, srvgg, torch_import, zoo
 from ..runtime import BaseService, Profiler
 from ..utils import get_logger, resolve_device
+from .jit_cache import CAPTURE_CALL, GraphPool, ShapeCache, enable_persistent_cache
 from .levels import LR_LEVELS
 from .steps import (
     UpscaleSpec,
@@ -236,6 +252,41 @@ class BaseUpscalerService(BaseService):
         dev, n = self.upscale_dispatch(frames)
         return self._fetch(dev, n)
 
+    def warmup_dispatches(self) -> int:
+        """Dispatches of one micro-batch that take a fresh stream through
+        the graph of every step it runs from then on (a step's graph is
+        captured at its CAPTURE_CALL-th call)."""
+        return CAPTURE_CALL
+
+    def reset_stream(self) -> None:
+        """Start a fresh stream (a stateless service has nothing to reset)."""
+
+    def warm_up(self, batch: int | None = None) -> None:
+        """Take the service through the graph of every step that a stream
+        runs before its drain, on zero micro-batches of `batch` frames
+        (batch_size by default), and leave it at the start of a fresh
+        stream: warmup_dispatches() micro-batches a stream, over
+        CAPTURE_CALL streams, since a step keyed by a frame index (the
+        denoise path's cold chunks) sees its signature once a stream."""
+        self.proc_init()
+        frames = np.zeros((batch or self.batch_size, *self.lr_shape, 3), np.uint8)
+        for _ in range(CAPTURE_CALL):
+            for _ in range(self.warmup_dispatches()):
+                self.upscale(frames)
+            self.reset_stream()
+
+    def close(self) -> None:
+        """Stop the worker, then drop the steps' ShapeCaches and the
+        stream's state: their graphs, memory pool and static buffers are
+        freed now, whatever still refers to the service.  proc_init()
+        builds them anew."""
+        self.stop()
+        self._inflight.clear()
+        for name, value in list(vars(self).items()):
+            if isinstance(value, ShapeCache) or name in ("_den_state", "_state"):
+                delattr(self, name)
+        self._initialized = False
+
 
 def _fast_epilogue_ratio(lr_shape, output_shape) -> tuple[int, int] | None:
     """(num, den) when the output is the 4x image downscaled by num/den
@@ -386,7 +437,7 @@ class EsrganUpscalerService(BaseUpscalerService):
                 sr_apply, params, _ = zoo.build_sr_model(self.upscaler_model, random_init=True, **kw)
             return sr_apply, params
 
-        cfg = self.srvgg_cfg
+        cfg, conv_stack = self.srvgg_cfg, self.conv_stack
         params = self._load_srvgg_params()
         ratio = None
         if self.fast_epilogue and cfg.upscale == 4 and self.output_shape:
@@ -397,12 +448,12 @@ class EsrganUpscalerService(BaseUpscalerService):
             log.info("fast epilogue active (fused ps4 + bicubic %d/%d)", *ratio)
 
             def sr_apply(p, x, r=ratio):
-                return srvgg.apply_down_rational(p, x, r[0], r[1], cfg=cfg, conv_stack=self.conv_stack)
+                return srvgg.apply_down_rational(p, x, r[0], r[1], cfg=cfg, conv_stack=conv_stack)
 
         else:
 
             def sr_apply(p, x):
-                return srvgg.apply(p, x, cfg=cfg, conv_stack=self.conv_stack)
+                return srvgg.apply(p, x, cfg=cfg, conv_stack=conv_stack)
 
         return sr_apply, params
 
@@ -411,6 +462,7 @@ class EsrganUpscalerService(BaseUpscalerService):
         # own thread before start()
         if getattr(self, "_initialized", False):
             return
+        enable_persistent_cache()
         spec = UpscaleSpec(
             lr_shape=self.lr_shape,
             output_shape=self.output_shape,
@@ -421,7 +473,6 @@ class EsrganUpscalerService(BaseUpscalerService):
         )
         self.spec = spec
         sr_apply, sr_params = self._build_sr()
-        self._sr_apply = sr_apply
         # weights live on the device in the compute dtype, cast once
         sr_params = torch_import.to_tensors(sr_params, self.device, self.compute_dtype)
         self._sr_params = sr_params
@@ -441,6 +492,8 @@ class EsrganUpscalerService(BaseUpscalerService):
             self.reset_stream()
         if self.mesh is not None:
             self._build_sharded(sr_apply)
+        else:
+            self._build_cached(sr_apply)
         log.info("model loaded (%s, denoise=%s, tsm_pair=%s, conv_stack=%d, device=%s, mesh=%s)",
                  self.upscaler_model, self.denoising, self.tsm_pair, self.conv_stack, self.device,
                  None if self.mesh is None else self.mesh.shape)
@@ -475,6 +528,61 @@ class EsrganUpscalerService(BaseUpscalerService):
             self._sharded_multi = make_sharded_upscale(
                 sr_apply, spec, mesh, halo=upscale_radius(sr_cfg, self._sr_ratio), align=align)
 
+    def _build_cached(self, sr_apply) -> None:
+        """The single-device steps through ShapeCaches of one GraphPool,
+        as the JAX package's proc_init builds them: the denoise chunk cold
+        and warm and its flush with the BSVD state donated, or the SR-only
+        step.  The donated state is BSVD's without its frame index `t`,
+        which each step takes as a host int: the cold and flush steps the
+        index itself, the warm step its ring phase (_warm_t)."""
+        spec, cfg, pool = self.spec, self.bsvd_cfg, GraphPool()
+        if not self.denoising:
+            self._multi_step = ShapeCache(lambda p, f: upscale_multi(sr_apply, p, f, spec), fixed_argnums=(0,),
+                                          pool=pool)
+            return
+        kw = dict(sr_sub_batch=self._sr_sub, tsm_pair=self.tsm_pair)
+
+        def timed(step):
+            def run(p, s, f, t, *rest):
+                out, new = step(p, {**s, "t": t}, f, *rest)
+                return out, {k: v for k, v in new.items() if k != "t"}
+
+            return ShapeCache(run, donate_argnums=(1,), fixed_argnums=(0,), pool=pool)
+
+        self._cold_step = timed(lambda p, s, f: upscale_batch_denoise(sr_apply, p, s, f, spec, cfg, **kw))
+        # the service owns its state: warm steps write the new frames into
+        # its skip rings without copying them
+        self._warm_step = timed(lambda p, s, f: upscale_batch_denoise(sr_apply, p, s, f, spec, cfg, warm=True,
+                                                                      inplace=True, **kw))
+        self._flush_step = timed(lambda p, s, f, te: flush_batch_denoise(sr_apply, p, s, f, te, spec, cfg))
+
+    def warmup_dispatches(self) -> int:
+        """Past SHIFT_NUM frames the denoise path runs its warm step, one
+        graph a phase of its skip ring where the micro-batch divides the
+        ring (two at micro-batch 4, one at 8): the cold chunks, then each
+        phase's warm-up and capture."""
+        if not self.denoising:
+            return CAPTURE_CALL
+        b, ring = self.batch_size, bsvd._SKIP12_DEPTH
+        return -(-bsvd.SHIFT_NUM // b) + CAPTURE_CALL * (ring // b if ring % b == 0 else 1)
+
+    def _warm_t(self, n: int) -> int:
+        """The frame index that keys the warm step of n frames: it reads the
+        index only through the skip rings' slot (t % ring length, where n
+        divides the ring; a chunk that does not runs its skips as FIFOs)
+        and, for the noise level, whether it is frame 0, which a warm step
+        never is."""
+        ring = self._den_state["temp1"]["skip1"].shape[0]
+        return bsvd.SHIFT_NUM + (self._den_state["t"] % ring if ring % n == 0 else 0)
+
+    def _den_call(self, step, frames: torch.Tensor, t: int, *rest) -> torch.Tensor:
+        """One cached denoise step on the service's state: the state goes
+        in without its index, and comes back with the index advanced."""
+        st = self._den_state
+        out, new = step(self._params, {k: v for k, v in st.items() if k != "t"}, frames, t, *rest)
+        self._den_state = {**new, "t": st["t"] + len(frames)}
+        return out
+
     def _frames_in(self, frames: np.ndarray) -> torch.Tensor:
         """frames for a step: on the device, or on the host for the mesh's
         factories, which upload each band."""
@@ -485,7 +593,8 @@ class EsrganUpscalerService(BaseUpscalerService):
         the denoise path as proc_init leaves them, so that a caller who
         warmed the service up (proc_init, then upscale) before start()
         feeds the stream cold, as a live stream begins."""
-        self._den_state = init_denoise_state(1, self.spec, self.bsvd_cfg, device=self.device)
+        if self.denoising:
+            self._den_state = init_denoise_state(1, self.spec, self.bsvd_cfg, device=self.device)
         # last SHIFT_NUM raw frames: the flush references them for the
         # blend / color match of the drained outputs
         self._tail_frames: list = []
@@ -527,10 +636,7 @@ class EsrganUpscalerService(BaseUpscalerService):
                 out, self._den_state = self._sharded_flush(self._params, self._den_state, chunk,
                                                            self._frames_seen)
             else:
-                out, self._den_state = flush_batch_denoise(
-                    self._sr_apply, self._params, self._den_state, chunk, self._frames_seen, self.spec,
-                    self.bsvd_cfg,
-                )
+                out = self._den_call(self._flush_step, chunk, self._den_state["t"], self._frames_seen)
             outs.append(_HostCopy(out))
         drained = np.concatenate([o.numpy() for o in outs])[: bsvd.SHIFT_NUM][bsvd.SHIFT_NUM - k :]
         mask = np.asarray(self._tail_real[-k:], bool)
@@ -565,14 +671,10 @@ class EsrganUpscalerService(BaseUpscalerService):
             if self.mesh is not None:
                 out, self._den_state = self._sharded_denoise[warm](self._params, self._den_state,
                                                                    self._frames_in(frames))
+            elif warm:
+                out = self._den_call(self._warm_step, self._frames_in(frames), self._warm_t(len(frames)))
             else:
-                out, self._den_state = upscale_batch_denoise(
-                    self._sr_apply, self._params, self._den_state, self._frames_in(frames),
-                    self.spec, self.bsvd_cfg, warm=warm, sr_sub_batch=self._sr_sub, tsm_pair=self.tsm_pair,
-                    # the service owns its state: warm steps write the new
-                    # frames into its skip rings without copying them
-                    inplace=True,
-                )
+                out = self._den_call(self._cold_step, self._frames_in(frames), self._den_state["t"])
             self._frames_seen += len(frames)
             # remember the fed frames (pads included: they advance the BSVD
             # timeline) so proc_eof can drain the in-flight tail; pads are
@@ -592,7 +694,7 @@ class EsrganUpscalerService(BaseUpscalerService):
         if self.mesh is not None:
             out = self._sharded_multi(self._sr_params, self._frames_in(frames))
         else:
-            out = upscale_multi(self._sr_apply, self._sr_params, self._frames_in(frames), self.spec)
+            out = self._multi_step(self._sr_params, self._frames_in(frames))
         return _HostCopy(out), n
 
 
@@ -610,6 +712,8 @@ class EgvsrUpscalerService(BaseUpscalerService):
     mesh: the chunk is a single-device route).  The
     micro-batch's outputs are stacked on the device and leave through one
     host copy."""
+
+    batch_size = 4  # the frames of a micro-batch that warm_up feeds (the pipeline's)
 
     def __init__(
         self,
@@ -641,11 +745,17 @@ class EgvsrUpscalerService(BaseUpscalerService):
         self.cut_threshold = cut_threshold
         self.chunked = chunked
 
+    def reset_stream(self) -> None:
+        """Start a fresh stream: the recurrent state zeroed."""
+        h, w = self.lr_shape
+        self._state = egvsr.init_recurrent_state(1, h, w, self.cfg, self.compute_dtype, self.device)
+
     def proc_init(self) -> None:
         # idempotent, so callers can build the service on their own thread
         # before start() without resetting the recurrence
         if getattr(self, "_initialized", False):
             return
+        enable_persistent_cache()
         if self.weights is not None:
             sd = torch_import.load_state_dict(self.weights)
             if self.cfg is None:
@@ -667,13 +777,17 @@ class EgvsrUpscalerService(BaseUpscalerService):
             compute_dtype=self.compute_dtype,
             pix_fmt=self.pix_fmt,
         )
-        h, w = self.lr_shape
-        self._state = egvsr.init_recurrent_state(1, h, w, self.cfg, self.compute_dtype, self.device)
-        self._step = None
+        self.reset_stream()
         if self.mesh is not None:
             from ..parallel import make_sharded_egvsr_step
 
             self._step = make_sharded_egvsr_step(self.spec, self.mesh, self.cfg, cut_threshold=self.cut_threshold)
+        else:
+            spec, kw, pool = self.spec, dict(cut_threshold=self.cut_threshold, cfg=self.cfg), GraphPool()
+            self._step = ShapeCache(lambda p, s, f: egvsr_upscale_step(p, s, f, spec, **kw), donate_argnums=(1,),
+                                    fixed_argnums=(0,), pool=pool)
+            self._chunk_step = ShapeCache(lambda p, s, f: egvsr_upscale_chunk(p, s, f, spec, **kw),
+                                          donate_argnums=(1,), fixed_argnums=(0,), pool=pool)
         log.info("model loaded (egvsr %s, chunked=%s, device=%s, mesh=%s)", self.cfg, self.chunked, self.device,
                  None if self.mesh is None else self.mesh.shape)
         self._initialized = True
@@ -685,17 +799,12 @@ class EgvsrUpscalerService(BaseUpscalerService):
         if frames.ndim != 4 or frames.shape[-1] != 3:
             raise ValueError(f"frames must be (N, H, W, 3), got {frames.shape}")
         x = _to_device(None if self.mesh is not None else self.device, frames)
-        kw = dict(cut_threshold=self.cut_threshold, cfg=self.cfg)
         if self.chunked and len(frames) > 1:
-            out, self._state = egvsr_upscale_chunk(self._params, self._state, x, self.spec, **kw)
+            out, self._state = self._chunk_step(self._params, self._state, x)
         else:
             outs = []
             for i in range(len(frames)):
-                if self._step is not None:
-                    o, self._state = self._step(self._params, self._state, x[i : i + 1])
-                else:
-                    o, self._state = egvsr_upscale_step(self._params, self._state, x[i : i + 1],
-                                                        self.spec, **kw)
+                o, self._state = self._step(self._params, self._state, x[i : i + 1])
                 outs.append(o)
             out = torch.cat(outs)
         return _HostCopy(out), len(frames)

@@ -11,9 +11,10 @@ state through each call:
     uint8 NHWC -> /255 -> area-resize to lr_shape -> FRNet step -> clamp
     -> resize to output_shape -> uint8 (or yuv420p) NHWC
 
-Every function takes and returns tensors on one device; PyTorch runs
-them eagerly, so there is no per-shape cache to keep.  The denoise path
-threads BSVD's streaming state (a dict) through each call.
+Every function takes and returns tensors on one device and runs
+eagerly; the services call them through jit_cache.ShapeCache, which
+replays one CUDA graph per input signature on the card.  The denoise
+path threads BSVD's streaming state (a dict) through each call.
 """
 
 from __future__ import annotations

@@ -404,16 +404,13 @@ def test_mint_ranking_gate(ds, ok):
 
 # ------------------------------------------------------------ the surface
 
-# JAX names with no counterpart in the port, by design (ROADMAP.md §1) or
-# queued for the next slice
+# JAX names with no counterpart in the port, by design (ROADMAP.md §1)
 ALLOWED = {
     "ops": {"conv2d_pairfold", "pairfold_conv_weights", "pixel_shuffle_folded_dil", "pixel_shuffle_mxu",
             "space_to_depth_mxu"},  # the MXU layouts of the TPU's convs
-    "upscale": {"ShapeCache", "enable_persistent_cache"},  # upscale/jit_cache.py, the next slice
 }
 ALLOWED_MODULES = {
     "ops/lanefold.py": "the TPU's lane-folded convs",
-    "upscale/jit_cache.py": "ShapeCache as per-shape CUDA graphs, the next slice",
 }
 ALLOWED_NAMES = {
     "ops/nn.py": ALLOWED["ops"],
@@ -458,7 +455,7 @@ JAX_MODULES = sorted(str(p.relative_to(ROOT / "sharkshark_tpu")) for p in (ROOT 
 def test_every_jax_module_name_has_a_counterpart(rel):
     port = ROOT / "sharkshark_tpu_torch" / rel
     if rel in ALLOWED_MODULES:
-        assert not port.exists() or rel == "upscale/jit_cache.py", rel
+        assert not port.exists(), rel
         return
     assert port.exists(), f"sharkshark_tpu_torch/{rel} is missing"
     missing = _public_names(ROOT / "sharkshark_tpu" / rel) - _public_names(port)
