@@ -137,7 +137,14 @@ Phases (any failure exits non-zero, and nothing is caught):
      on one card, still through the sharded factories) with its exact
      bytes, and, with two or more cards, K1 and K4 against their plain
      versions on each card; K1 and K4 at the bands' shapes beside their
-     plain versions, their bounds and the cuDNN calls;
+     plain versions, their bounds and the cuDNN calls.  Each mesh service
+     runs twice over its frames, through its bands' CUDA graphs and
+     through the factories' eager reference
+     (parallel.sharded._eager_reference), held identical bit for bit,
+     with the graphs held per band, the host's dispatch ms/frame (warm
+     chunks, eager against replayed), the step's ms/frame back to back,
+     the host ms of a step call split by part on an idle device, and the
+     peak memory per device of each run;
  16. training over the mesh and the last tools: make_sharded_train_step
      at configs/egvsr_bd.yml's FRNet (nf 64, nb 10, BD, T 10, the minted
      weights) against the single-device step, at its crop 128 and batch
@@ -2539,16 +2546,40 @@ def check_band_shapes(bench, bench_cs, shapes: dict, card: str) -> dict:
     return rows
 
 
+def band_graphs(svc) -> dict:
+    """The graphs that each band of a mesh service's factories holds
+    (parallel/sharded.py's band_caches), by band position and then by
+    factory and phase."""
+    factories = {n.strip("_"): getattr(svc, n) for n in ("_sharded_multi", "_sharded_flush", "_step")
+                 if hasattr(svc, n)}
+    factories.update({"warm" if w else "cold": f for w, f in getattr(svc, "_sharded_denoise", {}).items()})
+    out = {}
+    for name, f in factories.items():
+        for (phase, pos), cache in getattr(f, "band_caches", {}).items():
+            out.setdefault(str(pos), {})[f"{name}.{phase}"] = cache.num_graphs
+    return out
+
+
 def run_mesh_service(service_mod, counters, card: str, name: str, make, frames: np.ndarray, batch: int,
-                     devices: list) -> tuple[dict, np.ndarray]:
+                     devices: list, eager: bool = False, warm_up: bool = False) -> tuple[dict, np.ndarray, object]:
     """One service built by make() over `frames` in micro-batches, driven
     as the live pipeline drives it: its frames (the EOF drain's included),
     launches (K1's and K4's by device too), wall time, the spacing of its
     deliveries, the host's time in each dispatch (enqueueing the step,
-    which waits for a device only where a copy must) and the peak memory
-    of each device."""
-    svc = make()
-    svc.proc_init()
+    which waits for a device only where a copy must), the device memory
+    allocated before the run and at its peak, and the graphs each band
+    holds.  `eager`: the mesh's factories made as their eager reference
+    (parallel.sharded._eager_reference), which captures no graph.
+    `warm_up`: svc.warm_up() first (a one-device service, so that its
+    stream replays its graphs).  Returns the service too, for the caller
+    to time and close."""
+    from sharkshark_tpu_torch.parallel import sharded
+
+    with sharded._eager_reference() if eager else contextlib.nullcontext():
+        svc = make()
+        svc.proc_init()
+    if warm_up:
+        svc.warm_up(batch)
     host_s = []
     dispatch = svc.upscale_dispatch
 
@@ -2560,7 +2591,9 @@ def run_mesh_service(service_mod, counters, card: str, name: str, make, frames: 
 
     svc.upscale_dispatch = timed
     torch.cuda.synchronize()
-    for d in sorted({d.index for d in devices}):
+    indices = sorted({d.index for d in devices})
+    base = {d: torch.cuda.memory_allocated(d) / 1e9 for d in indices}
+    for d in indices:
         torch.cuda.reset_peak_memory_stats(d)
     counters.reset()
     t0 = time.perf_counter()
@@ -2571,20 +2604,134 @@ def run_mesh_service(service_mod, counters, card: str, name: str, make, frames: 
     out = np.concatenate([np.asarray(e.frames) for e in got])
     res = {"run": name, "frames": len(out), "launches": counters.read(), "launches_by_device": counters.by_device(),
            "wall_s": wall, "stamps": stamps, "dispatch_ms": [v * 1e3 for v in host_s],
-           "peak_mem_gb_by_device": {d: torch.cuda.max_memory_allocated(d) / 1e9
-                                     for d in sorted({d.index for d in devices})}}
+           "base_mem_gb_by_device": base,
+           "peak_mem_gb_by_device": {d: torch.cuda.max_memory_allocated(d) / 1e9 for d in indices},
+           # what the run itself added at its peak (a service made before it
+           # may still hold its state)
+           "peak_growth_gb_by_device": {d: (torch.cuda.max_memory_allocated(d) / 1e9) - base[d] for d in indices},
+           "graphs_by_band": band_graphs(svc)}
     assert out.dtype == np.uint8 and out.shape[1:] == (1440, 2560, 3), (out.dtype, out.shape)
+    if svc.mesh is not None:
+        if eager:
+            assert not res["graphs_by_band"], f"{name}: the eager reference holds graphs {res['graphs_by_band']}"
+        else:
+            assert res["graphs_by_band"] and min(sum(v.values()) for v in res["graphs_by_band"].values()) > 0, \
+                f"{name}: a band holds no graph: {res['graphs_by_band']}"
     log(f"{name}: {len(out)} frames of 1440x2560x3 uint8, launches {res['launches']}, by device "
-        f"{res['launches_by_device']}, wall {wall:.3f} s, peak memory by device "
-        + ", ".join(f"cuda:{d} {v:.3f} GB" for d, v in res["peak_mem_gb_by_device"].items()) + f" on {card}")
-    return res, out
+        f"{res['launches_by_device']}, wall {wall:.3f} s, graphs by band {res['graphs_by_band']}, device memory "
+        "allocated before / at peak " + ", ".join(f"cuda:{d} {base[d]:.3f} / {v:.3f} GB"
+                                                  for d, v in res["peak_mem_gb_by_device"].items()) + f" on {card}")
+    return res, out, svc
+
+
+def hold_identical(what: str, got: np.ndarray, want: np.ndarray) -> None:
+    """The mesh service through its bands' graphs against the same
+    service's eager reference: identical bit for bit."""
+    assert got.shape == want.shape and got.dtype == want.dtype == np.uint8, (got.shape, want.shape)
+    differ = int((got != want).sum())
+    log(f"{what}: through the bands' graphs against the eager factories "
+        f"{'identical bit for bit' if not differ else f'DIFFERENT ({differ} values)'}")
+    assert not differ, f"{what}: the graphs differ from the eager factories in {differ} values"
+
+
+def host_split_ms(call, n: int = 6) -> dict:
+    """Host ms a call of a mesh factory's step, one call at a time on an
+    idle device, split by part: the halo refresh, the uploads (one a
+    device), the bands' columns cut from them on the device, the bands'
+    cache calls (the signature, the copies into static buffers, the
+    replay, the output clones; or, in the eager reference, nothing), the
+    colour statistics, the output gathers and EGVSR's HR gather; "other"
+    is the rest of the call (an eager reference's band work among it).
+    Medians over n calls; a part inside another counts to the outer."""
+    from sharkshark_tpu_torch.parallel import _bands, sharded
+    from sharkshark_tpu_torch.upscale import jit_cache
+
+    parts = {"refresh": (_bands.ShardedState, "refresh"), "uploads": (sharded, "put_each"),
+             "band slices": (sharded, "_band_cols"), "band caches": (jit_cache.ShapeCache, "__call__"),
+             "statistics": (sharded, "_colour_stats"), "gathers": (sharded, "_gather_out"),
+             "hr gather": (sharded, "_whole_hr")}
+    spent, depth = {}, [0]
+
+    def timed(name, fn):
+        def wrapper(*args, **kw):
+            depth[0] += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                depth[0] -= 1
+                if depth[0] == 0:
+                    spent[name] += time.perf_counter() - t0
+
+        return wrapper
+
+    originals = {name: getattr(owner, attr) for name, (owner, attr) in parts.items()}
+    rows = []
+    try:
+        for name, (owner, attr) in parts.items():
+            setattr(owner, attr, timed(name, originals[name]))
+        for _ in range(n):
+            spent.update({k: 0.0 for k in parts})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            total = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            rows.append({**spent, "other": total - sum(spent.values()), "total": total})
+    finally:
+        for name, (owner, attr) in parts.items():
+            setattr(owner, attr, originals[name])
+    return {k: statistics.median(r[k] for r in rows) * 1e3 for k in rows[0]}
+
+
+def mesh_graph_runs(service_mod, counters, card: str, what: str, make, frames: np.ndarray, batch: int,
+                    devices: list, replayed_from: int, step_call, frames_per_call: int) -> dict:
+    """A mesh service run through its eager reference, then through its
+    bands' graphs, over the same frames: identical bit for bit, the host's
+    dispatch in ms/frame (the eager run's warm dispatches from
+    `replayed_from` on against the graphs' replayed ones, medians), the
+    step's device ms/frame back to back (`step_call(svc)` after the
+    stream, passes eager, graphs, graphs, eager) and each run's memory.
+    Returns {"eager": ..., "graphs": ..., "timing": ...} and the graphs'
+    output."""
+    eres, eout, esvc = run_mesh_service(service_mod, counters, card, f"{what} (eager reference)", make, frames,
+                                        batch, devices, eager=True)
+    gres, gout, gsvc = run_mesh_service(service_mod, counters, card, f"{what} (bands' graphs)", make, frames, batch,
+                                        devices)
+    hold_identical(what, gout, eout)
+    assert gres["launches"] == eres["launches"] and gres["launches_by_device"] == eres["launches_by_device"], \
+        (gres["launches"], eres["launches"])
+    with torch.inference_mode():
+        passes = step_ms(lambda: step_call(esvc), lambda: step_call(gsvc))
+        split = {"eager": host_split_ms(lambda: step_call(esvc)), "graphs": host_split_ms(lambda: step_call(gsvc))}
+    esvc.close()
+    gsvc.close()
+    del esvc, gsvc
+    timing = {"dispatch_ms_per_frame_eager": statistics.median(eres["dispatch_ms"][replayed_from:]) / batch,
+              "dispatch_ms_per_frame_replay": statistics.median(gres["dispatch_ms"][replayed_from:]) / batch,
+              "device_ms_per_frame_eager": statistics.mean(passes["eager"]) / frames_per_call,
+              "device_ms_per_frame_replay": statistics.mean(passes["replay"]) / frames_per_call,
+              "device_ms_passes": passes, "host_split_ms_per_call": split}
+    log(f"{what}: the host's dispatch {timing['dispatch_ms_per_frame_eager']:.3f} ms/frame eager, "
+        f"{timing['dispatch_ms_per_frame_replay']:.3f} replayed; the step back to back "
+        f"{timing['device_ms_per_frame_eager']:.3f} ms/frame eager, {timing['device_ms_per_frame_replay']:.3f} "
+        f"through the graphs; graphs by band {gres['graphs_by_band']}; peak memory by device, above what was "
+        "allocated before the run, eager "
+        + ", ".join(f"cuda:{d} {v:.3f}" for d, v in eres["peak_growth_gb_by_device"].items()) + " GB, graphs "
+        + ", ".join(f"cuda:{d} {v:.3f}" for d, v in gres["peak_growth_gb_by_device"].items()) + f" GB on {card}")
+    for k, row in split.items():
+        log(f"{what}: host ms a step call on an idle device ({k}): "
+            + ", ".join(f"{part} {v:.3f}" for part, v in row.items()) + f" on {card}")
+    return {"eager": eres, "graphs": gres, "timing": timing}, gout
 
 
 def run_mesh_denoise(service_mod, counters, card: str, n: int = 48, batch: int = 4) -> dict:
     """The denoise service (minted SRVGG general-x4v3 + BSVD-32, 720p ->
-    1440p, bf16) on a 1x4 mesh and on one device over the same n frames
-    and the EOF drain: PSNR >= 40 dB between them, 16 K1 and 32 K4
-    launches a chunk on each band, and the warm step's ms/frame of each."""
+    1440p, bf16) on a 1x4 mesh, through its bands' graphs and through
+    their eager reference, and on one device over the same n frames and
+    the EOF drain: the graphs identical to the eager reference, PSNR >= 40
+    dB against one device, 16 K1 and 32 K4 launches a chunk on each band,
+    two warm graphs a band, and the warm step's ms/frame of each."""
     from sharkshark_tpu_torch.models import bsvd
     from sharkshark_tpu_torch.parallel import make_mesh
 
@@ -2593,17 +2740,30 @@ def run_mesh_denoise(service_mod, counters, card: str, n: int = 48, batch: int =
     frames = make_frames(n, 720, 1280, seed=29, pan=2)
     kw = dict(lr_level=3, output_shape=(1440, 2560), denoising=True, denoise_rate=0.75, batch_size=batch,
               weights=str(MINTED / "srvgg-derived-x4.pth"), denoise_weights=str(MINTED / "bsvd-derived-32.pth"))
-    runs = {}
-    for name, extra in (("denoise service, mesh 1x4", {"mesh": mesh}), ("denoise service, one device", {})):
-        res, out = run_mesh_service(service_mod, counters, card, name,
-                                    lambda: service_mod.EsrganUpscalerService(**kw, **extra), frames, batch, devices)
-        jobs, first_warm = n // batch, bsvd.SHIFT_NUM // batch
+    jobs, first_warm = n // batch, bsvd.SHIFT_NUM // batch
+    # each ring phase's warm step runs eagerly once, is captured at its
+    # second call and replays after
+    first_replay = first_warm + 2 * (8 // batch)
+    x = torch.from_numpy(frames[:batch])
+
+    def warm_step(svc):
+        _, svc._den_state = svc._sharded_denoise[True](svc._params, svc._den_state, x)
+
+    graph_res, mout = mesh_graph_runs(service_mod, counters, card, "denoise service, mesh 1x4",
+                                      lambda: service_mod.EsrganUpscalerService(**kw, mesh=mesh), frames, batch,
+                                      devices, first_replay, warm_step, batch)
+    sres, sout, ssvc = run_mesh_service(service_mod, counters, card, "denoise service, one device",
+                                        lambda: service_mod.EsrganUpscalerService(**kw), frames, batch, devices,
+                                        warm_up=True)
+    ssvc.close()
+    del ssvc
+    mres, eres = graph_res["graphs"], graph_res["eager"]
+    # delivered ms/frame over the warm chunks, the graphs' over their replays
+    for res, out, first in ((mres, mout, first_replay), (eres, mout, first_warm), (sres, sout, first_warm)):
         stamps = res.pop("stamps")
-        res["warm_ms_per_frame"] = (stamps[jobs - 1] - stamps[first_warm - 1]) / ((jobs - first_warm) * batch) * 1e3
-        res["warm_dispatch_ms_per_frame"] = statistics.median(res["dispatch_ms"][first_warm:jobs]) / batch
-        assert len(out) == n + min(n, bsvd.SHIFT_NUM), f"{name}: {len(out)} frames, expected the drain too"
-        runs[name] = (res, out)
-    (mres, mout), (sres, sout) = runs.values()
+        res["warm_ms_per_frame"] = (stamps[jobs - 1] - stamps[first - 1]) / ((jobs - first) * batch) * 1e3
+        res["warm_dispatch_ms_per_frame"] = statistics.median(res["dispatch_ms"][first:jobs]) / batch
+        assert len(out) == n + min(n, bsvd.SHIFT_NUM), f"{res['run']}: {len(out)} frames, expected the drain too"
     bands = 4  # 1280 LR columns in bands of 320
     chunks = n // batch + bsvd.SHIFT_NUM // batch
     want = {"tsm_conv": 16 * chunks * bands, "tsm_conv_pair": 0, "backward_warp": 0,
@@ -2614,21 +2774,26 @@ def run_mesh_denoise(service_mod, counters, card: str, n: int = 48, batch: int =
         per_dev[d.index] = per_dev.get(d.index, 0) + 16 * chunks
     assert mres["launches_by_device"]["tsm_conv"] == per_dev, mres["launches_by_device"]
     value = psnr(mout, sout)
+    warm_graphs = {k: v["warm.front"] for k, v in mres["graphs_by_band"].items()}
+    assert warm_graphs == {str(k): 8 // batch for k in range(bands)}, f"warm graphs by band {warm_graphs}"
     log(f"denoise service, mesh 1x4 on {[str(d) for d in devices]} against one device: PSNR {value:.3f} dB "
-        f"(min 40); warm step {mres['warm_ms_per_frame']:.3f} ms/frame sharded, "
-        f"{sres['warm_ms_per_frame']:.3f} one device; the host's dispatch of a warm chunk "
-        f"{mres['warm_dispatch_ms_per_frame']:.3f} ms/frame sharded, {sres['warm_dispatch_ms_per_frame']:.3f} "
-        f"one device; per band and chunk 16 K1 and 32 K4 ({bands} bands, "
+        f"(min 40); warm step delivered {mres['warm_ms_per_frame']:.3f} ms/frame over the replays, "
+        f"{eres['warm_ms_per_frame']:.3f} eager, {sres['warm_ms_per_frame']:.3f} one device; the host's dispatch "
+        f"of a warm chunk {graph_res['timing']['dispatch_ms_per_frame_replay']:.3f} ms/frame replayed, "
+        f"{graph_res['timing']['dispatch_ms_per_frame_eager']:.3f} eager, {sres['warm_dispatch_ms_per_frame']:.3f} "
+        f"one device; warm graphs by band {warm_graphs}; per band and chunk 16 K1 and 32 K4 ({bands} bands, "
         f"{chunks} chunks) on {card}")
     assert value >= 40.0, "the sharded denoise service disagrees with the single-device one"
-    return {"mesh": mres, "one_device": sres, "psnr_db": value, "bands": bands, "chunks": chunks,
-            "devices": [str(d) for d in devices]}
+    return {"mesh": mres, "mesh_eager": eres, "timing": graph_res["timing"], "one_device": sres,
+            "psnr_db": value, "bands": bands, "chunks": chunks, "devices": [str(d) for d in devices]}
 
 
 def run_mesh_sr(service_mod, counters, card: str, jobs: int = 8, batch: int = 4) -> dict:
     """The SR-only service on a 2x2 mesh (batch over 'data', W over
-    'spatial') against one device: 8 micro-batches of 4, PSNR >= 40 dB,
-    32 K4 launches a band and call (2 x 2 bands a call)."""
+    'spatial'), through its bands' graphs and their eager reference, and
+    on one device: 8 micro-batches of 4, the graphs identical to the eager
+    reference, PSNR >= 40 dB, 32 K4 launches a band and call (2 x 2 bands
+    a call)."""
     from sharkshark_tpu_torch.parallel import make_mesh
 
     devices = mesh_devices(4)
@@ -2636,50 +2801,76 @@ def run_mesh_sr(service_mod, counters, card: str, jobs: int = 8, batch: int = 4)
     frames = make_frames(jobs * batch, 720, 1280, seed=31)
     kw = dict(lr_level=3, output_shape=(1440, 2560), denoising=False, batch_size=batch,
               weights=str(MINTED / "srvgg-derived-x4.pth"))
-    (mres, mout), (sres, sout) = (
-        run_mesh_service(service_mod, counters, card, name, lambda: service_mod.EsrganUpscalerService(**kw, **extra),
-                         frames, batch, devices)
-        for name, extra in (("SR-only service, mesh 2x2", {"mesh": mesh}), ("SR-only service, one device", {})))
-    for res in (mres, sres):
+    x = torch.from_numpy(frames[:batch])
+
+    def step(svc):
+        svc._sharded_multi(svc._sr_params, x)
+
+    # the first call runs eagerly, the second captures
+    graph_res, mout = mesh_graph_runs(service_mod, counters, card, "SR-only service, mesh 2x2",
+                                      lambda: service_mod.EsrganUpscalerService(**kw, mesh=mesh), frames, batch,
+                                      devices, 2, step, batch)
+    sres, sout, ssvc = run_mesh_service(service_mod, counters, card, "SR-only service, one device",
+                                        lambda: service_mod.EsrganUpscalerService(**kw), frames, batch, devices,
+                                        warm_up=True)
+    ssvc.close()
+    del ssvc
+    mres = graph_res["graphs"]
+    for res in (mres, graph_res["eager"], sres):
         stamps = res.pop("stamps")
         res["ms_per_frame"] = (stamps[-1] - stamps[0]) / ((jobs - 1) * batch) * 1e3
         res["dispatch_ms_per_frame"] = statistics.median(res["dispatch_ms"][1:]) / batch
     want = {"tsm_conv": 0, "tsm_conv_pair": 0, "backward_warp": 0, "fused_conv_stack": 32 * jobs * 4}
     assert mres["launches"] == want, f"mesh SR-only launches {mres['launches']}, expected {want}"
     value = psnr(mout, sout)
-    log(f"SR-only service, mesh 2x2 against one device: PSNR {value:.3f} dB (min 40); "
-        f"{mres['ms_per_frame']:.3f} ms/frame sharded, {sres['ms_per_frame']:.3f} one device; the host's "
-        f"dispatch {mres['dispatch_ms_per_frame']:.3f} / {sres['dispatch_ms_per_frame']:.3f} ms/frame on {card}")
+    log(f"SR-only service, mesh 2x2 against one device: PSNR {value:.3f} dB (min 40); delivered "
+        f"{mres['ms_per_frame']:.3f} ms/frame through the graphs, {graph_res['eager']['ms_per_frame']:.3f} eager, "
+        f"{sres['ms_per_frame']:.3f} one device; the host's dispatch "
+        f"{graph_res['timing']['dispatch_ms_per_frame_replay']:.3f} replayed / {sres['dispatch_ms_per_frame']:.3f} "
+        f"one device ms/frame on {card}")
     assert value >= 40.0, "the sharded SR-only service disagrees with the single-device one"
-    return {"mesh": mres, "one_device": sres, "psnr_db": value}
+    return {"mesh": mres, "mesh_eager": graph_res["eager"], "timing": graph_res["timing"], "one_device": sres,
+            "psnr_db": value}
 
 
 def run_mesh_egvsr(service_mod, counters, card: str, one_device: dict, one_out: np.ndarray, jobs: int = 6,
                    batch: int = 4) -> dict:
     """The EGVSR service (minted FRNet) on a 1x4 mesh over phase 6's 24
-    frames, against phase 6's single-device run: PSNR >= 40 dB, and no K3
-    launch (the sharded step warps by the plain gather)."""
+    frames, through its bands' graphs and their eager reference, against
+    phase 6's single-device run: the graphs identical to the eager
+    reference, PSNR >= 40 dB, and no K3 launch (the sharded step warps by
+    the plain gather)."""
     from sharkshark_tpu_torch.parallel import make_mesh
 
     devices = mesh_devices(4)
     mesh = make_mesh(devices=devices, spatial=4)
     frames = make_frames(jobs * batch, 720, 1280, seed=13)
-    res, out = run_mesh_service(
+    x = torch.from_numpy(frames[:1])
+
+    def step(svc):
+        _, svc._state = svc._step(svc._params, svc._state, x)
+
+    # a dispatch runs 4 steps: the first's first two warm up and capture
+    graph_res, out = mesh_graph_runs(
         service_mod, counters, card, "EGVSR service, mesh 1x4",
         lambda: service_mod.EgvsrUpscalerService(lr_level=3, output_shape=(1440, 2560),
                                                  weights=str(MINTED / "egvsr-derived-x4.pth"), mesh=mesh),
-        frames, batch, devices)
-    stamps = res.pop("stamps")
-    res["ms_per_frame"] = (stamps[jobs - 1] - stamps[0]) / ((jobs - 1) * batch) * 1e3
-    res["dispatch_ms_per_frame"] = statistics.median(res["dispatch_ms"][1:]) / batch
+        frames, batch, devices, 1, step, 1)
+    res = graph_res["graphs"]
+    for r in (res, graph_res["eager"]):
+        stamps = r.pop("stamps")
+        r["ms_per_frame"] = (stamps[jobs - 1] - stamps[0]) / ((jobs - 1) * batch) * 1e3
+    res["dispatch_ms_per_frame"] = graph_res["timing"]["dispatch_ms_per_frame_replay"]
     assert res["launches"] == {"tsm_conv": 0, "tsm_conv_pair": 0, "backward_warp": 0, "fused_conv_stack": 0}, \
         f"the sharded EGVSR path launched {res['launches']}"
     value = psnr(out, one_out)
     log(f"EGVSR service, mesh 1x4 against one device (K3): PSNR {value:.3f} dB (min 40); backward_warp "
-        f"launches {res['launches']['backward_warp']}; {res['ms_per_frame']:.3f} ms/frame sharded (the host's "
-        f"dispatch {res['dispatch_ms_per_frame']:.3f}), {one_device['ms_per_frame']:.3f} one device on {card}")
+        f"launches {res['launches']['backward_warp']}; delivered {res['ms_per_frame']:.3f} ms/frame through the "
+        f"graphs (the host's dispatch {res['dispatch_ms_per_frame']:.3f}), {graph_res['eager']['ms_per_frame']:.3f} "
+        f"eager, {one_device['ms_per_frame']:.3f} one device on {card}")
     assert value >= 40.0, "the sharded EGVSR service disagrees with the single-device one"
-    return {"mesh": res, "psnr_db": value, "one_device_ms_per_frame": one_device["ms_per_frame"]}
+    return {"mesh": res, "mesh_eager": graph_res["eager"], "timing": graph_res["timing"], "psnr_db": value,
+            "one_device_ms_per_frame": one_device["ms_per_frame"]}
 
 
 def check_kernels_on_every_card(tsm, cs, card: str) -> list[dict]:

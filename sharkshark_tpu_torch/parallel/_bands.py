@@ -24,7 +24,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 __all__ = [
-    "Band", "ShardedState", "split_width", "alignment", "put", "on_device", "tree_map", "replicate",
+    "Band", "ShardedState", "split_width", "alignment", "put", "put_each", "on_device", "tree_map", "replicate",
     "cols", "band_slice", "gather_bands", "gather_yuv420", "shared_stats", "shard_state", "gather_state",
 ]
 
@@ -101,6 +101,21 @@ def put(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
     if dev.type == "cuda" and x.device.type == "cpu":
         return x.contiguous().pin_memory().to(dev, non_blocking=True)
     return x.to(dev, non_blocking=True)
+
+
+def put_each(x: torch.Tensor, devices) -> dict:
+    """x whole on each distinct device of `devices`, {device: tensor}: a
+    host tensor is pinned once and uploaded once a device."""
+    out, pinned = {}, None
+    for dev in devices:
+        if dev in out:
+            continue
+        if dev.type == "cuda" and x.device.type == "cpu":
+            pinned = x.contiguous().pin_memory() if pinned is None else pinned
+            out[dev] = pinned.to(dev, non_blocking=True)
+        else:
+            out[dev] = put(x, dev)
+    return out
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -196,28 +211,27 @@ class ShardedState:
     are whole copies.  The centres are exact; `refresh()` makes the halo
     columns exact again from the neighbouring bands' centres."""
 
-    def __init__(self, parts: list, bands: list[Band], frame_w: int, base_w: int, widths) -> None:
+    def __init__(self, parts: list, bands: list[Band], frame_w: int, base_w: int, widths, plan=None) -> None:
         self.parts, self.bands, self.frame_w, self.base_w = parts, bands, frame_w, base_w
         self.widths = widths  # per leaf: the whole leaf's width, or None
+        self._plan = plan  # refresh's copies, made at its first call
 
     def replace(self, parts: list) -> "ShardedState":
-        return ShardedState(parts, self.bands, self.frame_w, self.base_w, self.widths)
+        return ShardedState(parts, self.bands, self.frame_w, self.base_w, self.widths, self._plan)
 
     def map(self, fn: Callable) -> "ShardedState":
         """fn applied to each band's state (one that keeps every column
         where it is, e.g. bsvd.ring_to_fifo_state)."""
         return self.replace([fn(p) for p in self.parts])
 
-    def refresh(self) -> None:
-        """Write every band's halo columns, in every leaf, from the other
-        bands' centres (a peer copy between cards, in place)."""
-        per_band = [_leaves(p) for p in self.parts]
+    def _copies(self) -> list[tuple]:
+        """refresh's copies, (leaf, band to, band from, start in each, length)
+        on the leaf's width axis; they depend on the bands and widths only."""
+        plan = []
         for i, full_w in enumerate(_leaves(self.widths)):
             if full_w is None:
                 continue
             for k, band in enumerate(self.bands):
-                dst = per_band[k][i]
-                ax = dst.ndim - 2
                 lo_k = cols(band.lo, self.frame_w, self.base_w, full_w)
                 for j, src_band in enumerate(self.bands):
                     a, b = max(band.lo, src_band.c0), min(band.hi, src_band.c1)
@@ -225,8 +239,23 @@ class ShardedState:
                         continue
                     a, b = (cols(v, self.frame_w, self.base_w, full_w) for v in (a, b))
                     lo_j = cols(src_band.lo, self.frame_w, self.base_w, full_w)
-                    src = per_band[j][i].narrow(ax, a - lo_j, b - a)
-                    dst.narrow(ax, a - lo_k, b - a).copy_(src, non_blocking=True)
+                    plan.append((i, k, j, a - lo_k, a - lo_j, b - a))
+        return plan
+
+    def refresh(self) -> None:
+        """Write every band's halo columns, in every leaf, from the other
+        bands' centres (a peer copy between cards, in place; one call for
+        all of them)."""
+        if self._plan is None:
+            self._plan = self._copies()
+        per_band = [_leaves(p) for p in self.parts]
+        dsts, srcs = [], []
+        for i, k, j, at_k, at_j, n in self._plan:
+            dst = per_band[k][i]
+            dsts.append(dst.narrow(dst.ndim - 2, at_k, n))
+            srcs.append(per_band[j][i].narrow(dst.ndim - 2, at_j, n))
+        if dsts:
+            torch._foreach_copy_(dsts, srcs, non_blocking=True)
 
     def gather(self, dev: torch.device | None = None) -> Any:
         """The whole state on `dev` (default the first band's device)."""

@@ -31,10 +31,18 @@ Tensors go in on any device (host frames are uploaded band by band
 through pinned memory) and the outputs come back whole on the mesh's
 first device.  `halo=None` gives every band the whole frame: exact for
 any sr_apply, at no saving.
+
+As the JAX factories keep one compiled executable per frame shape, each
+factory keeps compiled forms: every band's device-local work runs
+through ShapeCaches of its own (upscale/jit_cache.py), one CUDA graph per
+signature on the card, and only the exchanges above, the halo refresh,
+the uploads and the gathers run eagerly between the replays
+(_BandCaches).  On the CPU the caches run eagerly.
 """
 
 from __future__ import annotations
 
+import contextlib
 from fractions import Fraction
 from math import ceil, gcd
 from typing import Any, Callable
@@ -44,6 +52,7 @@ import torch
 from ..models import bsvd, egvsr, rrdbnet, srvgg
 from ..ops import space_to_depth
 from ..ops.warp import backward_warp_columns
+from ..upscale.jit_cache import GraphPool, ShapeCache
 from ..upscale.steps import (
     UpscaleSpec,
     _denoise_finish,
@@ -56,6 +65,7 @@ from ..upscale.steps import (
     _multi_local,
     _resize_to_output,
     _sub_batches,
+    _warm_index,
 )
 from ._bands import (
     Band,
@@ -67,6 +77,7 @@ from ._bands import (
     gather_yuv420,
     on_device,
     put,
+    put_each,
     replicate,
     shard_state,
     shared_stats,
@@ -199,6 +210,13 @@ def _in_cols(band: Band, frame_w: int, in_w: int) -> slice:
     return slice(cols(band.lo, frame_w, frame_w, in_w), cols(band.hi, frame_w, frame_w, in_w))
 
 
+def _band_cols(xs: dict, band: Band, frame_w: int) -> torch.Tensor:
+    """A band's columns of the input frames (N, H, in_w, C), from the
+    frames whole on its device (put_each), as a tensor of its own."""
+    x = xs[band.device]
+    return x[:, :, _in_cols(band, frame_w, x.shape[2])].contiguous()
+
+
 def _whole_width(part: torch.Tensor, band: Band, frame_w: int, axis: int = 2) -> int:
     v = Fraction(part.shape[axis] * frame_w, band.hi - band.lo)
     if v.denominator != 1:
@@ -256,6 +274,54 @@ def _state_in(state, bands: list[Band], frame_w: int, base_w: int) -> ShardedSta
     return shard_state(state, bands, frame_w, base_w)
 
 
+# factories made inside _eager_reference() run their bands' phases
+# without a graph
+_EAGER = [False]
+
+
+@contextlib.contextmanager
+def _eager_reference():
+    """Factories made inside this block (directly or by a service's
+    proc_init) run every band's phases eagerly, with no ShapeCache: the
+    reference that chip_smoke and the card tests hold the graphs against.
+    No service option, flag or variable reaches it."""
+    _EAGER[0] = True
+    try:
+        yield
+    finally:
+        _EAGER[0] = False
+
+
+class _BandCaches:
+    """A factory's compiled forms, the counterpart of the JAX factories'
+    `compiled[frames.shape]`: one ShapeCache per (phase, band position),
+    made at the band's first call, on one GraphPool and tagged with the
+    band's position, so that each band keeps its own static buffers (two
+    bands of equal width on one device must not share a state).  A
+    cache's signature carries the band's shapes and its spec, so one
+    cache holds a graph per frame shape.  `caches` maps (phase,
+    position) to the cache."""
+
+    def __init__(self, pool: GraphPool | None = None) -> None:
+        self.pool = pool if pool is not None else GraphPool()
+        self.eager = _EAGER[0]
+        self.caches: dict = {}
+
+    def phase(self, name: str, fn: Callable, **kw) -> Callable:
+        """`run(position, *args)`: fn through the band's cache (kw:
+        ShapeCache's donate_argnums and fixed_argnums)."""
+
+        def run(pos, *args):
+            if self.eager:
+                return fn(*args)
+            cache = self.caches.get((name, pos))
+            if cache is None:
+                cache = self.caches[(name, pos)] = ShapeCache(fn, pool=self.pool, tag=pos, **kw)
+            return cache(*args)
+
+        return run
+
+
 # ------------------------------------------------------------ factories
 
 
@@ -271,10 +337,19 @@ def make_sharded_upscale(
     over "data" and W over "spatial" (bands with `halo` LR columns each
     side, upscale_radius; `align`: the SR model's, sr_align).  The batch
     must divide by mesh.shape['data'] (see mesh.pad_batch).  The output
-    is whole on the mesh's first device."""
+    is whole on the mesh's first device.
+
+    Each band (data row r, position k) runs _multi_local through its
+    cache ("local", (r, k)), then the shared statistics eagerly, then
+    _multi_finish through its cache ("finish", (r, k)); `fn.band_caches`
+    holds them.  The weights are fixed arguments: pass the same tree."""
     rows = [list(r) for r in mesh.devices]
     replicas = _Replicas(mesh.device_list)
     dev0 = mesh.device_list[0]
+    caches = _BandCaches()
+    local = caches.phase("local", lambda p, x, bspec: _multi_local(sr_apply, p, x, bspec), fixed_argnums=(0,))
+    finish = caches.phase("finish", lambda hr, lr, st, bspec, full_hw: _multi_finish(hr, lr, bspec, st,
+                                                                                       full_hw=full_hw))
 
     def fn(params, frames):
         n, h, in_w, _ = frames.shape
@@ -292,12 +367,12 @@ def make_sharded_upscale(
         outs = []
         for r, row in enumerate(rows):
             bands = split_width(frame_w, row, a, halo)
+            xs = put_each(frames[r * nb : (r + 1) * nb], [b.device for b in bands])
             hrs, lrs, specs = [], [], []
-            for band in bands:
+            for k, band in enumerate(bands):
                 bspec = _band_spec(spec, band, frame_w)
                 with on_device(band.device):
-                    x = put(frames[r * nb : (r + 1) * nb, :, _in_cols(band, frame_w, in_w)], band.device)
-                    hr, lr = _multi_local(sr_apply, reps[band.device], x, bspec)
+                    hr, lr = local((r, k), reps[band.device], _band_cols(xs, band, frame_w), bspec)
                 hrs.append(hr)
                 lrs.append(lr)
                 specs.append(bspec)
@@ -307,12 +382,13 @@ def make_sharded_upscale(
                                  "match (a multiple of 8 is needed)")
             stats = _colour_stats(hrs, lrs, bands, frame_w, dev0)
             parts = []
-            for band, hr, lr, bspec, st in zip(bands, hrs, lrs, specs, stats):
+            for k, (band, hr, lr, bspec, st) in enumerate(zip(bands, hrs, lrs, specs, stats)):
                 with on_device(band.device):
-                    parts.append(_multi_finish(hr, lr, bspec, st, full_hw=full_hw))
+                    parts.append(finish((r, k), hr, lr, st, bspec, full_hw))
             outs.append(_gather_out(parts, bands, frame_w, spec, dev0))
         return outs[0] if len(outs) == 1 else torch.cat(outs)
 
+    fn.band_caches = caches.caches
     return fn
 
 
@@ -322,24 +398,62 @@ def _denoise_plan(spec: UpscaleSpec, devices, in_w: int, halo, align: int):
     return frame_w, split_width(frame_w, devices, a, halo)
 
 
-def _denoise_tail(sr_apply, reps, fronts, bands, frame_w, spec, sr_sub_batch, dev0):
-    """The SR stage and colour match of a sharded denoise chunk, sub-batch
-    by sub-batch as upscale_batch_denoise runs them: every band's local
-    part, the shared statistics, every band's finish."""
-    specs = [_band_spec(spec, b, frame_w) for b in bands]
-    outs = []
-    for sl in _sub_batches(fronts[0][1].shape[0], sr_sub_batch):
-        hrs = []
-        for band, (den, lr), bspec in zip(bands, fronts, specs):
-            with on_device(band.device):
-                hrs.append(_denoise_local(sr_apply, reps[band.device], den[sl], lr[sl], bspec))
-        stats = _colour_stats(hrs, [lr[sl] for _, lr in fronts], bands, frame_w, dev0)
-        parts = []
-        for band, hr, (_, lr), bspec, st in zip(bands, hrs, fronts, specs, stats):
-            with on_device(band.device):
-                parts.append(_denoise_finish(hr, lr[sl], bspec, st))
-        outs.append(_gather_out(parts, bands, frame_w, spec, dev0))
-    return outs[0] if len(outs) == 1 else torch.cat(outs)
+def _untimed(state: dict) -> dict:
+    """A BSVD state without its frame index, which a band's cache takes
+    as a host int of its own (a graph cannot key on a count that grows
+    at every call)."""
+    return {k: v for k, v in state.items() if k != "t"}
+
+
+def _denoise_phases(caches: _BandCaches, sr_apply, sr_sub_batch, front_step: Callable):
+    """The two cached phases of a sharded denoise or flush chunk, per
+    band: "front" (the BSVD chunk by front_step(p, state, x, t, *rest,
+    bspec), with the state donated, then every sub-batch's SR and
+    sharpen, _denoise_local) and "finish" (every sub-batch's colour match
+    with the shared statistics, clamp, resize and emission)."""
+
+    def front(p, st, x, t, *rest):
+        den, lr, new = front_step(p, {"t": t, **st}, x, *rest)
+        bspec = rest[-1]
+        hrs = tuple(_denoise_local(sr_apply, p, den[sl], lr[sl], bspec)
+                    for sl in _sub_batches(lr.shape[0], sr_sub_batch))
+        return hrs, lr, _untimed(new)
+
+    def finish(hrs, lr, stats, bspec):
+        return tuple(_denoise_finish(hr, lr[sl], bspec, st)
+                     for hr, sl, st in zip(hrs, _sub_batches(lr.shape[0], sr_sub_batch), stats))
+
+    return (caches.phase("front", front, donate_argnums=(1,), fixed_argnums=(0,)),
+            caches.phase("finish", finish))
+
+
+def _denoise_bands(front, finish, reps, sh: ShardedState, x_all, key, rest: tuple, frame_w: int, spec,
+                   sr_sub_batch, dev0) -> tuple:
+    """A sharded denoise or flush chunk through the bands' phases: each
+    band's front (its state without `t`, keyed by the host int `key`),
+    the statistics of every sub-batch (eager), each band's finish, and
+    the gathers.  Returns (out, new ShardedState)."""
+    bands = sh.bands
+    t = sh.parts[0]["t"]
+    xs = put_each(x_all, [b.device for b in bands])
+    fronts, new_parts, specs = [], [], []
+    for k, (band, part) in enumerate(zip(bands, sh.parts)):
+        bspec = _band_spec(spec, band, frame_w)
+        with on_device(band.device):
+            hrs, lr, new = front(k, reps[band.device], _untimed(part), _band_cols(xs, band, frame_w), key, *rest,
+                                 bspec)
+        fronts.append((hrs, lr))
+        new_parts.append({"t": t + x_all.shape[0], **new})
+        specs.append(bspec)
+    subs = _sub_batches(x_all.shape[0], sr_sub_batch)
+    stats = [_colour_stats([hrs[i] for hrs, _ in fronts], [lr[sl] for _, lr in fronts], bands, frame_w, dev0)
+             for i, sl in enumerate(subs)]
+    parts = []
+    for k, (band, (hrs, lr), bspec) in enumerate(zip(bands, fronts, specs)):
+        with on_device(band.device):
+            parts.append(finish(k, hrs, lr, tuple(st[k] for st in stats), bspec))
+    outs = [_gather_out([p[i] for p in parts], bands, frame_w, spec, dev0) for i in range(len(subs))]
+    return (outs[0] if len(outs) == 1 else torch.cat(outs)), sh.replace(new_parts)
 
 
 def make_sharded_denoise(
@@ -352,6 +466,7 @@ def make_sharded_denoise(
     *,
     halo: int | None = None,
     align: int = 1,
+    pool: GraphPool | None = None,
 ) -> Callable:
     """Sharded denoise micro-batch step: `fn(params, state, frames_u8) ->
     (out_u8, new_state)`, upscale_batch_denoise with W split over every
@@ -363,26 +478,38 @@ def make_sharded_denoise(
     leaves as a ShardedState (gather_state makes it whole); a warm step
     writes the new frames into the band states' skip rings in place, as
     the service's step does, so a ShardedState passed to it is consumed
-    (a whole state is split into copies first)."""
+    (a whole state is split into copies first).
+
+    Each band runs its BSVD chunk and SR ("front", the band's state
+    donated) and its colour match and emission ("finish") through its own
+    ShapeCaches (`fn.band_caches`); the halo refresh, the statistics and
+    the gathers run eagerly between them.  The band's state goes in
+    without its frame index: a cold chunk is keyed by the index, a warm
+    one by its ring phase (steps._warm_index), so a stream holds 8/T warm
+    graphs a band.  The donated state comes back as the caches' static
+    buffers, which the next call's refresh writes in place.  `pool`: one
+    GraphPool for the cold, warm and flush factories of one stream (a
+    service's), so that the band's state passes between them without a
+    copy."""
     cfg = cfg or bsvd.BSVD_32
     devices = mesh.device_list
     replicas = _Replicas(devices)
+    caches = _BandCaches(pool)
+
+    def front_step(p, st, x, bspec):
+        return _denoise_front(p, st, x, bspec, cfg, warm=warm, inplace=True)
+
+    front, finish = _denoise_phases(caches, sr_apply, sr_sub_batch, front_step)
 
     def fn(params, state, frames):
         frame_w, bands = _denoise_plan(spec, devices, frames.shape[2], halo, align)
         sh = _state_in(state, bands, frame_w, -(-frame_w // 4) * 4)
-        reps = replicas(params)
-        fronts, new_parts = [], []
-        for band, part in zip(bands, sh.parts):
-            with on_device(band.device):
-                x = put(frames[:, :, _in_cols(band, frame_w, frames.shape[2])], band.device)
-                den, lr, new = _denoise_front(reps[band.device], part, x, _band_spec(spec, band, frame_w), cfg,
-                                              warm=warm, inplace=True)
-            fronts.append((den, lr))
-            new_parts.append(new)
-        out = _denoise_tail(sr_apply, reps, fronts, bands, frame_w, spec, sr_sub_batch, devices[0])
-        return out, sh.replace(new_parts)
+        t = sh.parts[0]["t"]
+        key = _warm_index(t, sh.parts[0]["temp1"]["skip1"].shape[0], frames.shape[0]) if warm else t
+        return _denoise_bands(front, finish, replicas(params), sh, frames, key, (), frame_w, spec, sr_sub_batch,
+                              devices[0])
 
+    fn.band_caches = caches.caches
     return fn
 
 
@@ -394,29 +521,30 @@ def make_sharded_denoise_flush(
     *,
     halo: int | None = None,
     align: int = 1,
+    pool: GraphPool | None = None,
 ) -> Callable:
     """Sharded EOF flush of the BSVD lookahead: `fn(params, state,
     lr_tail_u8, t_end) -> (out_u8, new_state)`, flush_batch_denoise on the
     bands of make_sharded_denoise, so a mesh-backed service drains its
-    sharded state without gathering it."""
+    sharded state without gathering it.  Its bands' phases are cached as
+    make_sharded_denoise's, keyed by the frame index and t_end."""
     cfg = cfg or bsvd.BSVD_32
     devices = mesh.device_list
     replicas = _Replicas(devices)
+    caches = _BandCaches(pool)
+
+    def front_step(p, st, x, t_end, bspec):
+        return _flush_front(p, st, x, t_end, bspec, cfg)
+
+    front, finish = _denoise_phases(caches, sr_apply, None, front_step)
 
     def fn(params, state, lr_tail, t_end):
         frame_w, bands = _denoise_plan(spec, devices, lr_tail.shape[2], halo, align)
         sh = _state_in(state, bands, frame_w, -(-frame_w // 4) * 4)
-        reps = replicas(params)
-        fronts, new_parts = [], []
-        for band, part in zip(bands, sh.parts):
-            with on_device(band.device):
-                x = put(lr_tail[:, :, _in_cols(band, frame_w, lr_tail.shape[2])], band.device)
-                den, lr, new = _flush_front(reps[band.device], part, x, t_end, _band_spec(spec, band, frame_w), cfg)
-            fronts.append((den, lr))
-            new_parts.append(new)
-        out = _denoise_tail(sr_apply, reps, fronts, bands, frame_w, spec, None, devices[0])
-        return out, sh.replace(new_parts)
+        return _denoise_bands(front, finish, replicas(params), sh, lr_tail, sh.parts[0]["t"], (t_end,), frame_w,
+                              spec, None, devices[0])
 
+    fn.band_caches = caches.caches
     return fn
 
 
@@ -433,11 +561,41 @@ def make_sharded_egvsr_step(
     recurrent stream has no batch to split), `halo` LR columns each side
     (None: egvsr_radius of cfg).  The state (lr_prev, hr_prev) enters
     whole or as a ShardedState and leaves as a ShardedState.  The HR warp
-    is the plain gather (_sharded_egvsr_body): no K3 launch."""
+    is the plain gather (_sharded_egvsr_body): no K3 launch.
+
+    Each band runs two cached phases (`fn.band_caches`): "flow" (the LR
+    frame, the HR flow and the band's share of the scene-cut sum) and
+    "sr" (the warp, the cut's select, SRNet and the emission, the band's
+    state donated); the previous HR frame's gather, the cut flag and the
+    output's gather run eagerly between them."""
     cfg = cfg or egvsr.DEFAULT
     devices = mesh.device_list
     replicas = _Replicas(devices)
     radius = egvsr_radius(cfg) if halo is None else halo
+    caches = _BandCaches()
+    s = cfg.scale
+
+    def flow(p, x, lr_prev, bspec, band, frame_w):
+        lr = _egvsr_lr(x, bspec)
+        f = egvsr._hr_flow(p, lr, lr_prev, cfg)
+        if cut_threshold is None:
+            return lr, f, None
+        # egvsr._cut_flags over the whole frame: the band's centre's sum
+        # of |lr - lr_prev|
+        return lr, f, _centre((lr.float() - lr_prev.float()).abs(), band, frame_w).sum()
+
+    def sr(p, part, lr, f, whole, skip, lo, bspec):
+        warped = backward_warp_columns(whole, f, s * lo)
+        if skip is not None:
+            warped = torch.where(skip, whole.narrow(2, s * lo, f.shape[2]), warped)
+        hr = egvsr.srnet_apply(p["srnet"], lr, space_to_depth(warped, s).to(lr.dtype))
+        return _emit(_resize_to_output(torch.clamp(hr.float(), 0.0, 1.0), bspec), bspec), (lr, hr)
+
+    phases = (caches.phase("flow", flow, fixed_argnums=(0,)),
+              # the whole previous HR frame is read where it lies: one
+              # buffer a device, which each call's gather writes
+              caches.phase("sr", sr, donate_argnums=(1,), fixed_argnums=(0, 4)))
+    wholes: dict = {}
 
     def fn(params, state, frame):
         n, h, in_w, _ = frame.shape
@@ -447,54 +605,70 @@ def make_sharded_egvsr_step(
         a = alignment(8, [(Fraction(in_w, frame_w), 1), *_out_constraints(spec, frame_w)])
         bands = split_width(frame_w, devices, a, radius)
         sh = _state_in(state, bands, frame_w, frame_w)
-        return _sharded_egvsr_body(replicas(params), sh, frame, spec, cfg, cut_threshold, frame_w, in_w)
+        return _sharded_egvsr_body(replicas(params), sh, frame, spec, s, cut_threshold, frame_w, phases, wholes)
 
+    fn.band_caches = caches.caches
     return fn
 
 
-def _sharded_egvsr_body(reps: dict, sh: ShardedState, frame, spec: UpscaleSpec, cfg, cut_threshold,
-                        frame_w: int, in_w: int):
+def _whole_hr(parts: list, bands: list[Band], frame_w: int, full_w: int, wholes: dict) -> dict:
+    """The previous HR frame whole on each band's device, gathered from
+    the bands' centres into one buffer a device (kept in `wholes` by
+    device and shape, so that a graph may read it where it lies)."""
+    dev0 = bands[0].device
+    hr0 = parts[0][1]
+    shape = (hr0.shape[0], hr0.shape[1], full_w, hr0.shape[3])
+    out = {}
+    for band in bands:
+        if band.device not in out:
+            key = (band.device, shape, hr0.dtype)
+            if key not in wholes:
+                wholes[key] = torch.empty(shape, dtype=hr0.dtype, device=band.device)
+            out[band.device] = wholes[key]
+    pieces = []
+    for part, band in zip(parts, bands):
+        sl = band_slice(band, frame_w, frame_w, full_w, centre=True)
+        pieces.append(put(part[1].narrow(2, sl.start, sl.stop - sl.start), dev0))
+    torch.cat(pieces, dim=2, out=out[dev0])
+    for dev, buf in out.items():
+        if dev != dev0:
+            buf.copy_(out[dev0], non_blocking=True)
+    return out
+
+
+def _sharded_egvsr_body(reps: dict, sh: ShardedState, frame, spec: UpscaleSpec, s: int, cut_threshold,
+                        frame_w: int, phases: tuple, wholes: dict):
     """egvsr_upscale_step on the bands: each band's LR frame and flow at
     its own width, the previous HR frame gathered whole to every device,
     each band's columns warped from it in the frame's coordinates (border
     clamp at the frame's edges) by the plain gather warp, the scene-cut
     test over the whole frame, then SRNet and the emission per band."""
+    flow, sr = phases
     bands = sh.bands
     dev0 = bands[0].device
-    s = cfg.scale
-    lrs = []
-    for band in bands:
+    xs = put_each(frame, [b.device for b in bands])
+    fronts = []
+    for k, (band, part) in enumerate(zip(bands, sh.parts)):
         with on_device(band.device):
-            x = put(frame[:, :, _in_cols(band, frame_w, in_w)], band.device)
-            lrs.append(_egvsr_lr(x, _band_spec(spec, band, frame_w)))
-    hr_prev = gather_bands([p[1] for p in sh.parts], bands, frame_w, s * frame_w, 2, dev0)
-    hr_whole = {}
-    for band in bands:
-        if band.device not in hr_whole:
-            hr_whole[band.device] = put(hr_prev, band.device)
+            fronts.append(flow(k, reps[band.device], _band_cols(xs, band, frame_w), part[0],
+                               _band_spec(spec, band, frame_w), band, frame_w))
+    whole = _whole_hr(sh.parts, bands, frame_w, s * frame_w, wholes)
     skips = [None] * len(bands)
     if cut_threshold is not None:
         # egvsr._cut_flags over the whole frame: the mean of |lr - lr_prev|
         # from the centres' sums
-        total = sum(put(_centre((lr.float() - p[0].float()).abs(), b, frame_w).sum(), dev0)
-                    for lr, p, b in zip(lrs, sh.parts, bands))
-        count = lrs[0].shape[0] * lrs[0].shape[1] * frame_w * lrs[0].shape[3]
+        total = sum(put(cut_sum, dev0) for _, _, cut_sum in fronts)
+        lr0 = fronts[0][0]
+        count = lr0.shape[0] * lr0.shape[1] * frame_w * lr0.shape[3]
         cut = (total / count > cut_threshold).reshape(())
         skips = [put(cut, b.device) for b in bands]
     outs, new_parts = [], []
-    for band, lr, part, skip in zip(bands, lrs, sh.parts, skips):
-        p = reps[band.device]
+    for k, (band, part, (lr, f, _), skip) in enumerate(zip(bands, sh.parts, fronts, skips)):
         with on_device(band.device):
-            flow = egvsr._hr_flow(p, lr, part[0], cfg)
-            whole = hr_whole[band.device]
-            warped = backward_warp_columns(whole, flow, s * band.lo)
-            if skip is not None:
-                own = whole.narrow(2, s * band.lo, flow.shape[2])
-                warped = torch.where(skip, own, warped)
-            hr = egvsr.srnet_apply(p["srnet"], lr, space_to_depth(warped, s).to(lr.dtype))
-            bspec = _band_spec(spec, band, frame_w)
-            outs.append(_emit(_resize_to_output(torch.clamp(hr.float(), 0.0, 1.0), bspec), bspec))
-        new_parts.append((lr, hr))
+            out, new = sr(k, reps[band.device], part, lr, f, whole[band.device], skip, band.lo,
+                          _band_spec(spec, band, frame_w))
+        outs.append(out)
+        new_parts.append(new)
     return _gather_out(outs, bands, frame_w, spec, dev0), sh.replace(new_parts)
 
 

@@ -138,14 +138,17 @@ class GraphPool:
     reuse what an earlier graph freed, whatever the order of the replays,
     and the pool holds about one step's temporaries, not one a graph.
 
-    A static buffer is kept per (argument position, donated or not,
-    structure, tensor shapes and dtypes): the graphs of every cache that
-    shares the pool read a donated argument of that structure from the
-    same tensors, so a step's state passes from one graph to the next
-    without a copy (the denoise steps' cold, warm and flush graphs).
-    Buffers are made at a capture only, so they are as bounded as the
-    graphs (MAX_GRAPHS a cache).  All of it is freed when the last
-    cache and graph that refer to the pool are dropped."""
+    A static buffer is kept per (the cache's tag, argument position,
+    donated or not, structure, tensor shapes and dtypes): the graphs of
+    every cache of one tag that shares the pool read a donated argument
+    of that structure from the same tensors, so a step's state passes
+    from one graph to the next without a copy (the denoise steps' cold,
+    warm and flush graphs).  Caches of other tags keep their own buffers:
+    the bands of a mesh (parallel/sharded.py), two of which may have
+    equal shapes on one device and must not share a state.  Buffers are
+    made at a capture only, so they are as bounded as the graphs
+    (MAX_GRAPHS a cache).  All of it is freed when the last cache and
+    graph that refer to the pool are dropped."""
 
     def __init__(self) -> None:
         self._handles: dict = {}
@@ -163,9 +166,10 @@ class GraphPool:
             self._streams[dev] = torch.cuda.Stream(dev)
         return self._streams[dev]
 
-    def statics(self, args: tuple, donated: tuple, fixed: tuple = ()) -> list[list]:
+    def statics(self, args: tuple, donated: tuple, fixed: tuple = (), tag: Any = None) -> list[list]:
         """Per argument, its static buffers (None at a non-tensor leaf, and
-        at every leaf of a fixed argument, which is read where it lies)."""
+        at every leaf of a fixed argument, which is read where it lies),
+        those of the caches tagged `tag`."""
         out = []
         for i, a in enumerate(args):
             leaves: list = []
@@ -173,7 +177,7 @@ class GraphPool:
             if i in fixed:
                 out.append([None] * len(leaves))
                 continue
-            key = (i, i in donated, struct,
+            key = (tag, i, i in donated, struct,
                    tuple(_leaf_sig(x) if isinstance(x, torch.Tensor) else None for x in leaves))
             if key not in self._statics:
                 # plain tensors, which a call in or out of inference mode
@@ -280,16 +284,21 @@ class ShapeCache:
     pool: a GraphPool that several caches share (one service's); by
     default the cache's graphs share one of their own.  Dropping the
     cache (and the pool, where shared) frees its graphs, their pool and
-    their static buffers."""
+    their static buffers.
+
+    tag: which of the pool's static buffers the cache uses; caches share
+    them only where their tags are equal (GraphPool).  A sharded factory
+    tags each band's caches with the band's position."""
 
     def __init__(self, fn: Callable, *, donate_argnums: tuple[int, ...] = (), fixed_argnums: tuple[int, ...] = (),
-                 pool: GraphPool | None = None):
+                 pool: GraphPool | None = None, tag: Any = None):
         if set(donate_argnums) & set(fixed_argnums):
             raise ValueError("ShapeCache: an argument is either donated or fixed")
         self._fn = fn
         self._donate = tuple(donate_argnums)
         self._fixed = tuple(fixed_argnums)
         self._pool = pool if pool is not None else GraphPool()
+        self._tag = tag
         self._seen: set[tuple] = set()
         self._warmed: set[tuple] = set()
         self._graphs: dict[tuple, _Graph] = {}
@@ -330,7 +339,7 @@ class ShapeCache:
         return out
 
     def _capture(self, dev: torch.device, args: tuple, struct, leaves: list) -> _Graph:
-        per_arg = self._pool.statics(args, self._donate, self._fixed)
+        per_arg = self._pool.statics(args, self._donate, self._fixed, self._tag)
         statics = [s for arg in per_arg for s in arg]
         fixed_at = [i in self._fixed for i, arg in enumerate(per_arg) for _ in arg]
         fixed = {j: x.data_ptr() for j, x in enumerate(leaves) if fixed_at[j] and isinstance(x, torch.Tensor)}

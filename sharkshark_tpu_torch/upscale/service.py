@@ -66,6 +66,7 @@ from .jit_cache import CAPTURE_CALL, GraphPool, ShapeCache, enable_persistent_ca
 from .levels import LR_LEVELS
 from .steps import (
     UpscaleSpec,
+    _warm_index,
     egvsr_upscale_chunk,
     egvsr_upscale_step,
     flush_batch_denoise,
@@ -276,14 +277,16 @@ class BaseUpscalerService(BaseService):
             self.reset_stream()
 
     def close(self) -> None:
-        """Stop the worker, then drop the steps' ShapeCaches and the
-        stream's state: their graphs, memory pool and static buffers are
-        freed now, whatever still refers to the service.  proc_init()
-        builds them anew."""
+        """Stop the worker, then drop the steps' ShapeCaches, the mesh's
+        factories (which hold their bands' caches) and the stream's state:
+        their graphs, memory pool and static buffers are freed now,
+        whatever still refers to the service.  proc_init() builds them
+        anew."""
         self.stop()
         self._inflight.clear()
         for name, value in list(vars(self).items()):
-            if isinstance(value, ShapeCache) or name in ("_den_state", "_state"):
+            if isinstance(value, ShapeCache) or name in ("_den_state", "_state", "_step") or name.startswith(
+                    "_sharded_"):
                 delattr(self, name)
         self._initialized = False
 
@@ -503,7 +506,8 @@ class EsrganUpscalerService(BaseUpscalerService):
         """The mesh's steps (parallel/sharded.py), with the halo of this SR
         model: the denoise chunk cold and warm and its flush, with W over
         every device, or the SR-only step, batch over "data" and W over
-        "spatial"."""
+        "spatial".  Each keeps its bands' graphs, as the JAX factories
+        keep their executables."""
         # parallel/ imports the steps of this package: import it when used
         from ..parallel import (
             denoise_radius,
@@ -517,7 +521,9 @@ class EsrganUpscalerService(BaseUpscalerService):
         sr_cfg, mesh, spec = self._sr_cfg(), self.mesh, self.spec
         align = sr_align(sr_cfg)
         if self.denoising:
-            kw = dict(halo=denoise_radius(sr_cfg, self.bsvd_cfg), align=align)
+            # one pool: a band's state passes between the cold, warm and
+            # flush graphs without a copy
+            kw = dict(halo=denoise_radius(sr_cfg, self.bsvd_cfg), align=align, pool=GraphPool())
             self._sharded_denoise = {
                 warm: make_sharded_denoise(sr_apply, spec, mesh, self.bsvd_cfg, warm=warm,
                                            sr_sub_batch=self._sr_sub, **kw)
@@ -567,13 +573,9 @@ class EsrganUpscalerService(BaseUpscalerService):
         return -(-bsvd.SHIFT_NUM // b) + CAPTURE_CALL * (ring // b if ring % b == 0 else 1)
 
     def _warm_t(self, n: int) -> int:
-        """The frame index that keys the warm step of n frames: it reads the
-        index only through the skip rings' slot (t % ring length, where n
-        divides the ring; a chunk that does not runs its skips as FIFOs)
-        and, for the noise level, whether it is frame 0, which a warm step
-        never is."""
-        ring = self._den_state["temp1"]["skip1"].shape[0]
-        return bsvd.SHIFT_NUM + (self._den_state["t"] % ring if ring % n == 0 else 0)
+        """The frame index that keys the warm step of n frames
+        (steps._warm_index)."""
+        return _warm_index(self._den_state["t"], self._den_state["temp1"]["skip1"].shape[0], n)
 
     def _den_call(self, step, frames: torch.Tensor, t: int, *rest) -> torch.Tensor:
         """One cached denoise step on the service's state: the state goes

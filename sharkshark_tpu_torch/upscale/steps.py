@@ -239,6 +239,16 @@ def _denoise_front(params, state, frames, spec: UpscaleSpec, cfg: bsvd.BSVDConfi
     return den[:, 0], lr, new_state
 
 
+def _warm_index(t: int, ring: int, n: int) -> int:
+    """The frame index that keys a warm step of n frames at frame t: the
+    warm step reads its index only through the skip rings' slot (t %
+    ring, where n divides the ring; a chunk that does not runs its skips
+    as FIFOs) and, for the noise level, whether it is frame 0, which a
+    warm step never is.  So the steps at t and at this index are the
+    same work on the same values."""
+    return bsvd.SHIFT_NUM + (t % ring if ring % n == 0 else 0)
+
+
 def _sub_batches(t: int, sr_sub_batch: int | None) -> list[slice]:
     """The SR tail's sub-batches of a T-frame chunk: sr_sub_batch frames
     each when T is a larger multiple of it, else the whole chunk."""
