@@ -86,26 +86,41 @@ Phases (any failure exits non-zero, and nothing is caught):
      nf 64 nb 10, SRVGG 64 x 32, BSVD-32) on derived datasets written
      from seeded 640x640 stills: 30 iterations with a checkpoint every 10
      (TF32 at PyTorch's default; the mean loss of the last 10 below the
-     first 10's, no kernel launched), a resume from the 20th, the step
-     timed alone (median of 10 after 3) with its peak memory, a resume
-     on the card bit for bit under deterministic algorithms, one step's
-     loss and gradients on the card (TF32 off) against the CPU (each
-     leaf within 1e-3, or twice its own float32 floor where higher),
-     test mode with the minted weights (FRNet's on the card and the CPU,
-     launching K3 once a frame), and profile mode;
+     first 10's, no kernel launched by the steps), each step through the
+     driver's CUDA graph of the whole step (one a batch shape: SRVGG's
+     partial last batch makes two),
+     FRNet's with a periodic test at each checkpoint through one
+     inference graph (K3 once a frame, replays included); a resume from
+     the 20th; the step timed eager and through its graph in one call
+     (step ms and host ms a call, medians of 10 after 3, the eager
+     step's peak memory and the graph's pool); the graph against the
+     eager step on six of the driver's batches (identical bit for bit
+     under deterministic algorithms; with PyTorch's defaults beside two
+     eager runs' own spread); the capturable Adam against the plain one
+     over 30 updates on identical gradients (within 1e-4 of the distance
+     moved); a resume on the card bit for bit under deterministic
+     algorithms; one step's loss and gradients on the card (TF32 off)
+     against the CPU (each leaf within 1e-3, or twice its own float32
+     floor where higher); test mode with the minted weights (FRNet's on
+     the card and the CPU, launching K3 once a frame), and profile mode
+     (the inference's graph replayed);
  13. the GAN recipe through the driver (configs/tecogan_bd.yml at its
      widths: FRNet nf 64 nb 10, the spatio-temporal D, GT crop 128, batch
      4, T 10 -> 19 frames with ping-pong, BD, the five losses) on phase
-     12's derived set at T 10, with its cuts listed: 30 iterations with a
-     checkpoint every 10, G's and D's losses and the D updates, a resume
-     from the 20th, the step timed alone (median of 10 after 3) under the
-     adaptive policy, 'always' and an adaptive threshold that never skips
-     (the cost of the policy's host read), a resume on the card bit for
+     12's derived set at T 10, with its cuts listed: 30 iterations through
+     the step's graph with a checkpoint every 10, G's and D's losses and
+     the D updates (decided on the device), a resume from the 20th, the
+     step timed eager and through its graph under the adaptive policy,
+     and through its graph under 'always' and an adaptive threshold that
+     never skips (the cost of the D blend), the graph against the eager
+     step as in phase 12 (the D decisions among the logs), the
+     capturable Adam against the plain one, a resume on the card bit for
      bit under deterministic algorithms, one step's losses, D decision
      and both networks' gradients on the card against the CPU (held in
      float64; float32, TF32 off, reported), and test mode through K3 (one
      launch a frame) on the card and the CPU, from the run's checkpoint
-     and from the minted FRNet; a short run with the spatial D and the
+     and then from the minted FRNet through one inference cache (the
+     second replays its graph); a short run with the spatial D and the
      VGG feature loss on a seeded VGG19 (its cost, not its quality), G
      from the minted FRNet; before these, ESPCN, VESPCN and SOF-VSR at
      their default configs on a 180x320 LR input, card against CPU and
@@ -179,6 +194,11 @@ unavailable or the script stands outside the repo checkout.
 runs phases 1, 2, phase 6's per-frame EGVSR service and phase 15 alone
 (on a machine with several cards: the bands on distinct cards), prints
 their JSON and the card line, and no result line.
+
+    python3 chip_smoke.py --train-only
+
+runs phases 1, 2, 12 and 13 alone, prints their JSON and the card line,
+and no result line.
 """
 
 from __future__ import annotations
@@ -1726,37 +1746,89 @@ def check_train_step_against_cpu(driver, opt: dict, batch: dict) -> dict:
 TF32_PEAK_FLOPS = 495e12  # H100 SXM dense TF32, NVIDIA's data sheet
 
 
-def time_train_step(driver, opt: dict, batch: dict, warmup: int = 3, iters: int = 10, recipe=None) -> dict:
-    """ms per training iteration on one batch already on the card, each
-    iteration synchronised, median after `warmup`; the peak memory of
-    those iterations; the step's conv and matmul FLOPs (forward and
-    backward, FlopCounterMode) and its bound at the TF32 peak, which
-    cuDNN's convs use at PyTorch's default.  `recipe`: the config's fresh
-    one unless given."""
+def time_train_step(driver, opt: dict, batch: dict, warmup: int = 3, iters: int = 10, recipes=None,
+                    routes=("eager", "graphs")) -> dict:
+    """ms per training iteration on one batch already on the card, for
+    each of `routes`: "eager", the recipe's plain step (`step.eager`), and
+    "graphs", the driver's compiled step (its CUDA graph replayed), each
+    on a recipe of its own (`recipes`: the config's fresh ones unless
+    given), within one call in passes eager, graphs, graphs, eager of
+    iters / 2 iterations, after `warmup` calls (the graph's warm-up,
+    capture and a replay among them).  Each iteration synchronised: its
+    step ms, and the host ms until the call returned (on an idle device:
+    the eager step's host work, the replay's prologue, copies and
+    launch); medians.  Memory: the eager step's peak above the state's;
+    for the graphs, the peak of the warm-up and capture above the
+    state's, and the memory the graph's pool holds after them.  The
+    step's conv and matmul FLOPs (forward and backward, FlopCounterMode,
+    on the first call, which runs eagerly either way) and its bound at
+    the TF32 peak, which cuDNN's convs use at PyTorch's default."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    recipe = recipe or driver.build_training(opt, "cuda")
+    recipes = recipes or {r: driver.build_training(opt, "cuda") for r in routes}
     lr = torch.from_numpy(batch["lr"]).cuda()
     gt = torch.from_numpy(batch["gt"]).cuda()
-    state = recipe.state
+    calls = {r: (lambda rc=recipes[r], r=r: (rc.step.eager if r == "eager" else rc.step)(rc.state, lr, gt))
+             for r in routes}
     counter = FlopCounterMode(display=False)
     with counter:
-        state, _ = recipe.step(state, lr, gt)
+        calls[routes[0]]()
     flops = float(counter.get_total_flops())
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated()
-    times = []
-    for i in range(warmup + iters):
-        t0 = time.perf_counter()
-        state, logs = recipe.step(state, lr, gt)
+    res = {"gflop": flops / 1e9, "bound_ms_tf32": flops / TF32_PEAK_FLOPS * 1e3}
+    for r in routes:
         torch.cuda.synchronize()
-        if i >= warmup:
-            times.append((time.perf_counter() - t0) * 1e3)
-    ms = statistics.median(times)
-    return {"ms_per_iter": ms, "ms_min": min(times), "ms_max": max(times),
-            "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "held_before_gb": held / 1e9,
-            "gflop": flops / 1e9, "tflops_per_s": flops / ms / 1e9, "bound_ms_tf32": flops / TF32_PEAK_FLOPS * 1e3}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        for _ in range(warmup - (r == routes[0])):
+            calls[r]()
+        torch.cuda.synchronize()
+        if r == "graphs":
+            torch.cuda.empty_cache()
+            res["graphs"] = {"warm_capture_peak_gb": (torch.cuda.max_memory_allocated() - held) / 1e9,
+                             "pool_gb": (torch.cuda.memory_reserved() - reserved) / 1e9,
+                             "graphs": recipes[r].step.num_graphs}
+    times, host, peak = ({r: [] for r in routes} for _ in range(3))
+    for r in (list(routes) + list(routes)[::-1]):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        for _ in range(max(iters // 2, 1)):
+            t0 = time.perf_counter()
+            calls[r]()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            times[r].append((time.perf_counter() - t0) * 1e3)
+            host[r].append((t1 - t0) * 1e3)
+        peak[r].append((torch.cuda.max_memory_allocated() - held) / 1e9)
+    for r in routes:
+        res.setdefault(r, {}).update(
+            ms_per_iter=statistics.median(times[r]), ms_min=min(times[r]), ms_max=max(times[r]),
+            host_ms=statistics.median(host[r]), peak_gb=max(peak[r]), times_ms=times[r])
+        res[r]["tflops_per_s"] = flops / res[r]["ms_per_iter"] / 1e9
+    if "eager" in res and "graphs" in res:
+        res["eager_over_graphs"] = res["eager"]["ms_per_iter"] / res["graphs"]["ms_per_iter"]
+        res["pool_over_eager_peak"] = res["graphs"]["pool_gb"] / res["eager"]["peak_gb"]
+    return res
+
+
+def train_timing_text(t: dict) -> str:
+    """One line of time_train_step's numbers."""
+    out = []
+    for r in ("eager", "graphs"):
+        if r in t:
+            out.append(f"{r} {t[r]['ms_per_iter']:.3f} ms ({t[r]['ms_min']:.3f}-{t[r]['ms_max']:.3f}), host "
+                       f"{t[r]['host_ms']:.3f} ms a call")
+    text = "; ".join(out) + f"; {t['gflop']:.3f} GFLOP, bound {t['bound_ms_tf32']:.3f} ms at the TF32 peak"
+    if "eager" in t:
+        text += f"; eager peak {t['eager']['peak_gb']:.3f} GB above the state"
+    if "graphs" in t:
+        g = t["graphs"]
+        text += (f"; graphs {g['graphs']}, pool {g['pool_gb']:.3f} GB, warm-up and capture peak "
+                 f"{g['warm_capture_peak_gb']:.3f} GB")
+    if "eager_over_graphs" in t:
+        text += f"; eager / graphs {t['eager_over_graphs']:.2f}x, pool / eager peak {t['pool_over_eager_peak']:.2f}x"
+    return text
 
 
 @contextlib.contextmanager
@@ -1823,6 +1895,104 @@ def check_resume_on_card(driver, opt: dict, batches: list, tmp: Path) -> dict:
     return res
 
 
+def plain_adam(recipe):
+    """The recipe's state with torch.optim's plain Adam (float rates, its
+    bias correction in float64 on the host, its state made at the first
+    update) in place of the card's capturable one: eager only."""
+    from sharkshark_tpu_torch.train import vsr
+
+    state = recipe.state
+    for name in ("opt", "opt_g", "opt_d"):
+        if hasattr(state, name):
+            old = getattr(state, name)
+            g = old.param_groups[0]
+            setattr(state, name, torch.optim.Adam(g["params"], lr=float(g["lr"]), betas=g["betas"], eps=g["eps"]))
+            assert not getattr(state, name).param_groups[0]["capturable"]
+    return recipe
+
+
+def state_snapshot(state) -> list:
+    """Copies of every tensor the step reads or writes: parameters, Adam's
+    moments, counts and rates, and the GAN's D count."""
+    from sharkshark_tpu_torch.train import compiled
+
+    return [t.detach().clone() for t in compiled.state_tensors(state)]
+
+
+def check_graphs_on_card(driver, opt: dict, batches: list) -> dict:
+    """The driver's compiled step (its CUDA graph) against the recipe's
+    eager step, from the config's seeded state on six of the driver's
+    batches: under deterministic algorithms identical bit for bit at every
+    step (warm-up, capture, four replays: every log, the GAN's D loss,
+    which is 0 where D was skipped, among them), then every tensor of the
+    state and the step; with PyTorch's defaults (cuDNN's weight gradients
+    add in a nondeterministic order) the graphed run's distance from an
+    eager one, over the distance the eager run moved the parameters,
+    beside the same measure between two eager runs."""
+
+    def run(route):
+        recipe = driver.build_training(opt, "cuda")
+        state = recipe.state
+        init = torch.cat([t.detach().flatten() for t in state_leaves(state)])
+        fn = recipe.step if route == "graphs" else recipe.step.eager
+        logs = [fn(state, lr, gt)[1] for lr, gt in batches]
+        torch.cuda.synchronize()
+        out = {"init": init, "params": torch.cat([t.detach().flatten() for t in state_leaves(state)]),
+               "logs": logs, "snap": state_snapshot(state), "step": state.step}
+        if route == "graphs":
+            out["graphs"] = {"signatures": recipe.step.num_signatures, "graphs": recipe.step.num_graphs}
+        return out
+
+    def rel(a, b):
+        return float((a["params"] - b["params"]).norm() / (b["params"] - b["init"]).norm())
+
+    with deterministic_algorithms():
+        eager, graphs = run("eager"), run("graphs")
+    res = {"steps": len(batches), "graphs": graphs["graphs"], "deterministic_bit_identical": (
+        all(torch.equal(a[key], b[key]) for a, b in zip(eager["logs"], graphs["logs"]) for key in a)
+        and eager["step"] == graphs["step"] and all(torch.equal(a, b) for a, b in zip(eager["snap"], graphs["snap"])))}
+    if "l_gan_D" in eager["logs"][0]:
+        res["d_updates"] = [bool(x["l_gan_D"] != 0) for x in eager["logs"]]
+    e1, e2, g = run("eager"), run("eager"), run("graphs")
+    res["default_eager_vs_eager"], res["default_graphs_vs_eager"] = rel(e2, e1), rel(g, e1)
+    return res
+
+
+def check_capturable_adam(driver, opt: dict, steps: int = 30) -> dict:
+    """The card's capturable Adam (vsr.make_optimizer: its bias correction
+    in float32 on the device, a tensor rate) against torch.optim's plain
+    Adam (in float64 on the host, a float rate) over `steps` updates of
+    copies of the recipe's seeded parameters (both networks' for the
+    GAN) on identical seeded gradients, at the config's rate decayed by
+    0.9 a step: the distance between the two, over the distance the plain
+    one moved them, and the largest difference.  (Whole training runs of
+    the two part much further: the step's own float32 rounding grows
+    through FRNet's recurrence, as cuDNN's nondeterministic sums do.)"""
+    from sharkshark_tpu_torch.train import vsr
+
+    recipe = driver.build_training(opt, "cuda")
+    leaves = state_leaves(recipe.state)
+    rate = float(getattr(recipe.cfg, "lr", getattr(recipe.cfg, "lr_g", 1e-4)))
+    a = [p.detach().clone().requires_grad_(True) for p in leaves]
+    b = [p.detach().clone().requires_grad_(True) for p in leaves]
+    init = torch.cat([p.detach().flatten() for p in leaves])
+    cap = vsr.make_optimizer(a, rate, 0.9, 0.999)
+    plain = torch.optim.Adam(b, lr=rate, betas=(0.9, 0.999), eps=1e-8)
+    assert cap.param_groups[0]["capturable"] and not plain.param_groups[0]["capturable"]
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    for k in range(steps):
+        for x, y in zip(a, b):
+            x.grad = torch.randn(x.shape, generator=gen, device="cuda") * 1e-2
+            y.grad = x.grad.clone()
+        vsr.set_rate(cap, rate * 0.9**k)
+        vsr.set_rate(plain, rate * 0.9**k)
+        cap.step()
+        plain.step()
+    fa, fb = (torch.cat([p.detach().flatten() for p in x]) for x in (a, b))
+    return {"steps": steps, "leaves": len(leaves), "rel": float((fa - fb).norm() / (fb - init).norm()),
+            "max_abs": float((fa - fb).abs().max())}
+
+
 def loader_batches(driver, opt: dict, n: int = 4) -> list:
     """The first n of the driver's training batches as (lr, gt) on the
     card, BD-degraded there where the config says so."""
@@ -1838,12 +2008,19 @@ def loader_batches(driver, opt: dict, n: int = 4) -> list:
 
 def run_training_recipe(driver, counters, name: str, data: dict, tmp: Path, card: str) -> dict:
     """One recipe through the driver: train 30 iterations (checkpoints at
-    10, 20, 30) and resume from the 20th, as a user runs them; the step
-    timed alone and held against the CPU; the resume on the card; test
-    mode with the minted weights on the card (FRNet's also on the CPU);
-    profile."""
+    10, 20, 30; FRNet with a periodic test at each) and resume from the
+    20th, as a user runs them, each step through its CUDA graph; the step
+    timed eager and through its graph; the graph held against the eager
+    step, the capturable Adam against the plain one; the resume on the
+    card; one step against the CPU; test mode with the minted weights on
+    the card (FRNet's also on the CPU); profile."""
     res = {}
     opt = training_config(driver, name, data, tmp)
+    if name == "frnet":
+        # a periodic test at each checkpoint: its inference warms up,
+        # captures and replays, K3 once a frame each time
+        opt["test"]["test_freq"] = TRAIN_CKPT_FREQ
+    val_frames = sum(sample["lr"].shape[0] for sample in driver._make_dataset(opt, "test"))
     cfg_path = write_config(opt, tmp / f"{name}.yml")
     with cudnn_tf32(True):
         counters.reset()
@@ -1860,10 +2037,21 @@ def run_training_recipe(driver, counters, name: str, data: dict, tmp: Path, card
         assert last < first, f"{name}: the mean loss of the last {k} iterations {last} is not below the first's {first}"
         want = [f"ckpt_{i:09d}" for i in range(k, TRAIN_ITERS + 1, k)]
         assert [Path(p).name for p in run["checkpoints"]] == want, run["checkpoints"]
-        # training runs no kernel: K3 has no backward (forward_sequence
-        # warps with the plain gather) and BSVD's shift convs take the
-        # library route in float32
-        assert not any(res["train_launches"].values()), res["train_launches"]
+        # a signature a batch shape (SRVGG's epoch of 12 clips at batch 8
+        # ends in a partial batch of 4), each captured at its second call
+        shapes = len({b["gt"].shape for b in driver.train_loader(opt)})
+        res["step_graphs"], res["test_graphs"] = run["step_graphs"], run["test_graphs"]
+        assert run["step_graphs"] == {"signatures": shapes, "graphs": shapes}, (run["step_graphs"], shapes)
+        # the training step runs no kernel: K3 has no backward
+        # (forward_sequence warps with the plain gather) and BSVD's shift
+        # convs take the library route in float32; FRNet's periodic tests
+        # launch K3 once a frame, through their graph from the second on
+        tests = len(run["tests"])
+        want_launches = {"tsm_conv": 0, "tsm_conv_pair": 0, "backward_warp": tests * val_frames, "fused_conv_stack": 0}
+        assert res["train_launches"] == want_launches, (res["train_launches"], want_launches)
+        if name == "frnet":
+            assert tests == TRAIN_ITERS // k and run["test_graphs"] == {"signatures": 1, "graphs": 1}, run
+            res["periodic_tests"] = run["tests"]
         res.update(losses=losses, loss_first10=first, loss_last10=last)
         os.remove(run["checkpoints"][-1])
         rerun = driver.main(["--config", cfg_path, "--mode", "train"])
@@ -1874,7 +2062,12 @@ def run_training_recipe(driver, counters, name: str, data: dict, tmp: Path, card
         loader = driver.train_loader(opt)
         batch = next(iter(loader))
         res["timing"] = time_train_step(driver, opt, batch)
-        res["resume"] = check_resume_on_card(driver, opt, loader_batches(driver, opt), tmp / name)
+        batches = loader_batches(driver, opt, 6)
+        res["graphs_vs_eager"] = gve = check_graphs_on_card(driver, opt, batches)
+        assert gve["deterministic_bit_identical"] and gve["graphs"] == {"signatures": shapes, "graphs": shapes}, gve
+        res["capturable_adam"] = check_capturable_adam(driver, opt)
+        assert res["capturable_adam"]["rel"] <= 1e-4, res["capturable_adam"]
+        res["resume"] = check_resume_on_card(driver, opt, batches[:4], tmp / name)
         assert res["resume"]["deterministic_bit_identical"], res["resume"]
     with cudnn_tf32(False):
         res["card_vs_cpu"] = check_train_step_against_cpu(driver, opt, batch)
@@ -1906,16 +2099,21 @@ def run_training_recipe(driver, counters, name: str, data: dict, tmp: Path, card
             assert min(res["test"]["frame_psnr_card_vs_cpu_db"]) >= 45.0, res["test"]
     with cudnn_tf32(True):
         res["profile"] = driver.main(["--config", cfg_path, "--mode", "profile"])
+    periodic = ""
+    if name == "frnet":
+        periodic = (f"; periodic tests at {list(run['tests'])} through one inference graph "
+                    f"({run['test_graphs']}), K3 {res['train_launches']['backward_warp']} = {tests} x {val_frames} "
+                    f"frames, PSNR {[round(v['test']['PSNR'], 4) for v in run['tests'].values()]}")
     log(f"training {name} ({TRAIN_RECIPES[name][0]}) on {card}: {TRAIN_ITERS} iterations in "
-        f"{res['train_wall_s']:.3f} s, loss {first:.1f} -> {last:.1f} (mean of the first / last {k}), peak "
-        f"{res['train_peak_gb']:.3f} GB; step {res['timing']['ms_per_iter']:.3f} ms (median of 10, "
-        f"{res['timing']['ms_min']:.3f}-{res['timing']['ms_max']:.3f}, peak {res['timing']['peak_gb']:.3f} GB, "
-        f"{res['timing']['gflop']:.3f} GFLOP, bound {res['timing']['bound_ms_tf32']:.3f} ms at the TF32 peak); "
-        f"resumed from {TRAIN_ITERS - k}: {k} more; resume on the card {res['resume']}; card vs CPU loss {cmp['loss_rel_err']:.2e}, "
+        f"{res['train_wall_s']:.3f} s through the step's graphs ({run['step_graphs']}), loss {first:.1f} -> "
+        f"{last:.1f} (mean of the first / last {k}), peak {res['train_peak_gb']:.3f} GB{periodic}; step "
+        f"{train_timing_text(res['timing'])}; graphs against eager {gve}; capturable Adam against the plain one "
+        f"{res['capturable_adam']}; resumed from {TRAIN_ITERS - k}: {k} more; "
+        f"resume on the card {res['resume']}; card vs CPU loss {cmp['loss_rel_err']:.2e}, "
         f"grads {cmp['grad_rel_err_all']:.2e} (all), {cmp['grad_rel_err_max']:.2e} (max of {cmp['grad_leaves']} leaves; the worst [leaf, card vs CPU, "
         f"CPU float32 vs float64]: {cmp['worst_leaves']}); test PSNR "
         f"{card_res['PSNR']:.4f} dB ({res['test']}), K3 {k3}; profile {res['profile']['flops'] / 1e9:.3f} "
-        f"GFLOP a call, {res['profile']['params']} params, {res['profile']['fps']:.2f} calls/s")
+        f"GFLOP a call, {res['profile']['params']} params, {res['profile']['fps']:.2f} calls/s (replayed)")
     return res
 
 
@@ -2071,11 +2269,15 @@ def write_vgg19(path: Path, seed: int = 13) -> None:
 def run_gan_recipe(driver, counters, data: Path, tmp: Path, card: str) -> dict:
     """The GAN recipe (configs/tecogan_bd.yml) through the driver on the
     card: train 30 iterations (checkpoints at 10, 20, 30) and resume from
-    the 20th; the step timed alone under the config's adaptive policy, and
+    the 20th, through the step's graph; the step timed eager and through
+    its graph under the config's adaptive policy, and through its graph
     under 'always' and an adaptive threshold no distance reaches (the
-    cost of its one host read a step); one step held against the CPU; the
-    resume on the card; test mode from the run's checkpoint through K3,
-    on the card and the CPU."""
+    cost of the device blend of D's update); the graph against the eager
+    step (the D decisions among them), the capturable Adam against the
+    plain one; one step held against the CPU; the resume on the card;
+    test mode from the run's checkpoint and then from the minted FRNet
+    through one inference cache (the second replays its graph), K3 once
+    a frame, on the card and the CPU."""
     res = {"cuts": GAN_CUTS}
     opt = gan_config(driver, data, tmp)
     cfg_path = write_config(opt, tmp / "gan.yml")
@@ -2100,20 +2302,27 @@ def run_gan_recipe(driver, counters, data: Path, tmp: Path, card: str) -> dict:
         assert [Path(p).name for p in run["checkpoints"]] == want, run["checkpoints"]
         # training runs no kernel: the warps are the plain gather (K3 has no backward)
         assert not any(res["train_launches"].values()), res["train_launches"]
+        res["step_graphs"] = run["step_graphs"]
+        assert run["step_graphs"] == {"signatures": 1, "graphs": 1}, run["step_graphs"]
         os.remove(run["checkpoints"][-1])
         rerun = driver.main(["--config", cfg_path, "--mode", "train"])
         assert Path(rerun["resumed_from"]).name == want[-2], rerun["resumed_from"]
         assert rerun["iter"] == GAN_ITERS and len(rerun["losses"]) == k and all(np.isfinite(rerun["losses"]))
         res["resumed_losses"] = rerun["losses"]
-        batches = loader_batches(driver, opt)
+        batches = loader_batches(driver, opt, 6)
         batch = {"lr": batches[0][0].cpu().numpy(), "gt": batches[0][1].cpu().numpy()}
         res["timing"] = time_train_step(driver, opt, batch)
         for label, policy in (("always", {"update_policy": "always"}),
                               ("adaptive_never_skips", {"update_threshold": 1e9})):
             popt = {**opt, "train": {**opt["train"], "discriminator": {**opt["train"]["discriminator"], **policy}}}
-            res[f"timing_{label}"] = time_train_step(driver, popt, batch)
-        res["host_read_ms"] = res["timing_adaptive_never_skips"]["ms_per_iter"] - res["timing_always"]["ms_per_iter"]
-        res["resume"] = check_resume_on_card(driver, opt, batches, tmp / "gan")
+            res[f"timing_{label}"] = time_train_step(driver, popt, batch, routes=("graphs",))
+        res["blend_ms"] = (res["timing_adaptive_never_skips"]["graphs"]["ms_per_iter"]
+                           - res["timing_always"]["graphs"]["ms_per_iter"])
+        res["graphs_vs_eager"] = gve = check_graphs_on_card(driver, opt, batches)
+        assert gve["deterministic_bit_identical"] and gve["graphs"] == {"signatures": 1, "graphs": 1}, gve
+        res["capturable_adam"] = check_capturable_adam(driver, opt)
+        assert res["capturable_adam"]["rel"] <= 1e-4, res["capturable_adam"]
+        res["resume"] = check_resume_on_card(driver, opt, batches[:4], tmp / "gan")
         assert res["resume"]["deterministic_bit_identical"], res["resume"]
     with cudnn_tf32(False):
         res["card_vs_cpu"] = cmp = check_gan_step_against_cpu(driver, opt, batches[0][0], batches[0][1])
@@ -2125,48 +2334,53 @@ def run_gan_recipe(driver, counters, data: Path, tmp: Path, card: str) -> dict:
         # float32 differences from frame to frame, so its frames are
         # reported and the sequence's PSNR held; the frames are held on
         # the minted FRNet (a trained, stable recurrence) in the same config
-        res["test"] = run_gan_test(driver, counters, opt, opt["train"]["ckpt_dir"], tmp / "res_gan")
+        infer = driver.ShapeCache(driver.define_generator(opt, "cuda")["infer"])
+        res["test"] = run_gan_test(driver, counters, opt, opt["train"]["ckpt_dir"], tmp / "res_gan", infer)
         assert abs(res["test"]["psnr_card"] - res["test"]["psnr_cpu"]) <= 0.05, res["test"]
         res["test_minted"] = run_gan_test(driver, counters, opt, str(MINTED / "egvsr-derived-x4.pth"),
-                                          tmp / "res_gan_minted")
+                                          tmp / "res_gan_minted", infer)
+        res["test_graphs"] = {"signatures": infer.num_signatures, "graphs": infer.num_graphs}
+        assert res["test_graphs"] == {"signatures": 1, "graphs": 1}, res["test_graphs"]
         assert abs(res["test_minted"]["psnr_card"] - res["test_minted"]["psnr_cpu"]) <= 0.05, res["test_minted"]
         assert min(res["test_minted"]["frame_psnr_card_vs_cpu_db"]) >= 45.0, res["test_minted"]
-    t = res["timing"]
     log(f"GAN training (configs/tecogan_bd.yml, FRNet nf 64 nb 10 + spatio-temporal D, crop 128, batch 4, T "
         f"{GAN_TEMPO} -> {2 * GAN_TEMPO - 1} with ping-pong) on {card}; cuts: {'; '.join(GAN_CUTS)}: "
         f"{GAN_ITERS} iterations in {res['train_wall_s']:.3f} s, peak {res['train_peak_gb']:.3f} GB, D updated "
         f"{res['cnt_upd_d']} of {GAN_ITERS}; G loss {res['loss_g_first10']:.1f} -> {res['loss_g_last10']:.1f}, D loss "
-        f"{res['loss_d_first10']:.4f} -> {res['loss_d_last10']:.4f} (mean of the first / last {k}); step "
-        f"{t['ms_per_iter']:.3f} ms (median of 10 after 3, {t['ms_min']:.3f}-{t['ms_max']:.3f}, peak "
-        f"{t['peak_gb']:.3f} GB, {t['gflop']:.3f} GFLOP, bound {t['bound_ms_tf32']:.3f} ms at the TF32 peak); "
-        f"'always' {res['timing_always']['ms_per_iter']:.3f} ms, adaptive that never skips "
-        f"{res['timing_adaptive_never_skips']['ms_per_iter']:.3f} ms (the host read: {res['host_read_ms']:.3f} ms); "
-        f"resume on the card {res['resume']}; card vs CPU (one sample), float64: losses "
+        f"{res['loss_d_first10']:.4f} -> {res['loss_d_last10']:.4f} (mean of the first / last {k}), through the "
+        f"step's graphs ({res['step_graphs']}); step {train_timing_text(res['timing'])}; through the graphs "
+        f"'always' {res['timing_always']['graphs']['ms_per_iter']:.3f} ms, adaptive that never skips "
+        f"{res['timing_adaptive_never_skips']['graphs']['ms_per_iter']:.3f} ms (the D blend: {res['blend_ms']:.3f} "
+        f"ms); graphs against eager {gve}; capturable Adam against the plain one {res['capturable_adam']}; resume "
+        f"on the card {res['resume']}; card vs CPU (one sample), float64: "
+        f"losses "
         f"{cmp['float64']['loss_rel_err_max']:.2e}, grads D {cmp['float64']['grad_rel_err_d']:.2e} G "
         f"{cmp['float64']['grad_rel_err_g']:.2e} (whole), {cmp['float64']['grad_rel_err_max']:.2e} (max of "
         f"{cmp['float64']['grad_leaves']} leaves); float32: grads D {cmp['float32']['grad_rel_err_d']:.2e} G "
         f"{cmp['float32']['grad_rel_err_g']:.2e}, the worst [leaf, card vs CPU, CPU float32 vs float64]: "
-        f"{cmp['float32']['worst_leaves']}; D decision {cmp['upd_d']}; test through K3 from the run's "
+        f"{cmp['float32']['worst_leaves']}; D decision {cmp['upd_d']}; test through one inference cache "
+        f"({res['test_graphs']}), K3 from the run's "
         f"checkpoint: {res['test']['launches']['backward_warp']} launches, {res['test']['ms_per_frame']:.3f} ms a "
         f"frame, PSNR {res['test']['psnr_card']:.4f} dB (CPU {res['test']['psnr_cpu']:.4f}), frames against the "
         f"CPU's {[round(v, 2) for v in res['test']['frame_psnr_card_vs_cpu_db']]} dB; from the minted FRNet: "
         f"PSNR {res['test_minted']['psnr_card']:.4f} dB (CPU {res['test_minted']['psnr_cpu']:.4f}), frames "
         f"{min(res['test_minted']['frame_psnr_card_vs_cpu_db']):.2f}-"
         f"{max(res['test_minted']['frame_psnr_card_vs_cpu_db']):.2f} dB against the CPU's, "
+        f"{res['test_minted']['launches']['backward_warp']} K3 launches through the replayed graph, "
         f"{res['test_minted']['ms_per_frame']:.3f} ms a frame")
     return res
 
 
-def run_gan_test(driver, counters, opt: dict, load_path: str, res_dir: Path) -> dict:
+def run_gan_test(driver, counters, opt: dict, load_path: str, res_dir: Path, infer) -> dict:
     """The GAN config's test mode with generator weights from `load_path`
-    on the card (through main, K3 once a frame, nothing else launched) and
-    on the CPU; each frame's PSNR card against CPU."""
+    on the card (through `infer`, the inference cache the calls share:
+    K3 once a frame, nothing else launched) and on the CPU; each frame's
+    PSNR card against CPU."""
     topt = {**opt, "model": {**opt["model"], "generator": {**opt["model"]["generator"], "load_path": load_path}}}
     topt["test"] = {**opt["test"], "res_dir": str(res_dir / "card")}
-    test_path = write_config(topt, res_dir.parent / f"{res_dir.name}.yml")
     counters.reset()
     t0 = time.perf_counter()
-    card_res = driver.main(["--config", test_path, "--mode", "test"])["test1"]
+    card_res = driver.test(topt, device="cuda", infer=infer)["test1"]
     wall = time.perf_counter() - t0
     launches = counters.read()
     frames = sorted((res_dir / "card").rglob("*.png"))
@@ -2220,21 +2434,23 @@ def run_gan_snet_vgg(driver, data: Path, tmp: Path, card: str, iters: int = 6) -
         res["train_wall_s"] = time.perf_counter() - t0
         res["l_feat_G"] = [float(x["l_feat_G"]) for x in logs]
         res["l_total_G"] = [float(x["l_total_G"]) for x in logs]
-        res["cnt_upd_d"] = recipe.state.cnt_upd_d
+        res["cnt_upd_d"] = int(recipe.state.cnt_upd_d)
+        res["step_graphs"] = {"signatures": recipe.step.num_signatures, "graphs": recipe.step.num_graphs}
         assert all(np.isfinite(res["l_feat_G"] + res["l_total_G"])), res
         batch = {"lr": batches[0][0].cpu().numpy(), "gt": batches[0][1].cpu().numpy()}
-        res["timing_vgg"] = time_train_step(driver, opt, batch, warmup=2, iters=5,
-                                            recipe=minted_gan_recipe(driver, opt))
-        res["timing_no_vgg"] = time_train_step(driver, plain, batch, warmup=2, iters=5,
-                                               recipe=minted_gan_recipe(driver, plain))
-    res["vgg_cost_ms"] = res["timing_vgg"]["ms_per_iter"] - res["timing_no_vgg"]["ms_per_iter"]
+        res["timing_vgg"] = time_train_step(driver, opt, batch, iters=6, routes=("graphs",),
+                                            recipes={"graphs": minted_gan_recipe(driver, opt)})
+        res["timing_no_vgg"] = time_train_step(driver, plain, batch, iters=6, routes=("graphs",),
+                                               recipes={"graphs": minted_gan_recipe(driver, plain)})
+    res["vgg_cost_ms"] = res["timing_vgg"]["graphs"]["ms_per_iter"] - res["timing_no_vgg"]["graphs"]["ms_per_iter"]
     log(f"GAN, spatial D (conditional) + VGG19 feature loss on seeded weights (its cost, not its quality), G from "
         f"the minted FRNet, on {card}: {iters} steps in {res['train_wall_s']:.3f} s, D updated {res['cnt_upd_d']}, "
         f"l_feat_G {res['l_feat_G'][0]:.4f} -> {res['l_feat_G'][-1]:.4f}, l_total_G {res['l_total_G'][0]:.1f} -> "
-        f"{res['l_total_G'][-1]:.1f}; step {res['timing_vgg']['ms_per_iter']:.3f} ms with the VGG loss, "
-        f"{res['timing_no_vgg']['ms_per_iter']:.3f} without ({res['vgg_cost_ms']:.3f} ms; "
-        f"{res['timing_vgg']['gflop']:.1f} / {res['timing_no_vgg']['gflop']:.1f} GFLOP; median of 5 after 2), peak "
-        f"{res['timing_vgg']['peak_gb']:.3f} GB")
+        f"{res['l_total_G'][-1]:.1f} (the step's graphs {res['step_graphs']}); step through its graph "
+        f"{res['timing_vgg']['graphs']['ms_per_iter']:.3f} ms with the VGG loss, "
+        f"{res['timing_no_vgg']['graphs']['ms_per_iter']:.3f} without ({res['vgg_cost_ms']:.3f} ms; "
+        f"{res['timing_vgg']['gflop']:.1f} / {res['timing_no_vgg']['gflop']:.1f} GFLOP; median of 6 after 3), pool "
+        f"{res['timing_vgg']['graphs']['pool_gb']:.3f} GB")
     return res
 
 
@@ -3702,6 +3918,18 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
+    if "--train-only" in sys.argv[1:]:
+        build = ROOT / "sharkshark_tpu_torch" / "build"
+        build.mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=build) as tmp:
+            train_res = run_training_phase(counters, card, Path(tmp))
+            log(f"phase 12 took {train_res['wall_s']:.1f} s")
+            gan_res = run_gan_phase(counters, card, Path(tmp))
+            log(f"phase 13 took {gan_res['wall_s']:.1f} s")
+        log(json.dumps({"training": train_res, "gan_variants_tools": gan_res}))
+        log(card)
+        return 0
+
     if "--mesh-only" in sys.argv[1:]:
         egvsr_res, egvsr_out = run_egvsr_path(service_mod, counters, card)
         mesh_res = run_mesh_phase(service_mod, counters, tsm, cs, bench, bench_cs, card, defaults, egvsr_res,
@@ -3841,6 +4069,8 @@ def main() -> int:
     kernels[3]["launches_zoo_cli"] = zoo_cli["fused_conv_stack"]
     kernels[3]["launches_image_service"] = image_res["k4_launches"]
     kernels[2]["launches_train_test"] = train_res["frnet"]["test_launches"]["backward_warp"]
+    # FRNet's periodic tests in training, through one inference graph
+    kernels[2]["launches_train_periodic_tests"] = train_res["frnet"]["train_launches"]["backward_warp"]
     kernels[2]["launches_gan_test"] = gan_res["gan"]["test"]["launches"]["backward_warp"]
     # the sharded paths of phase 15: every band's launches, by device too
     mesh_den = mesh_res["denoise"]["mesh"]

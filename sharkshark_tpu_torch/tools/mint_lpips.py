@@ -49,7 +49,7 @@ import torch.nn.functional as F
 
 from ..ops import conv2d
 from ..train.metrics import _SCALE, _SHIFT, LPIPS
-from ..train.vsr import make_optimizer
+from ..train.vsr import make_optimizer, set_rate
 from ..utils import resolve_device
 
 __all__ = ["SPECS", "CHANNELS", "DISTORTIONS", "init_params", "features", "distance", "ranking_loss",
@@ -341,8 +341,7 @@ def train(train_imgs, steps: int, batch: int = 8, patch: int = 64, lr: float = 1
         opt.zero_grad(set_to_none=True)
         loss.backward()
         clip_by_global_norm([p.grad for p in leaves])
-        for group in opt.param_groups:
-            group["lr"] = sched(it)
+        set_rate(opt, sched(it))
         opt.step()
         losses.append(float(loss.detach()))
         if it % 100 == 0 or it == steps - 1:

@@ -6,17 +6,24 @@
 Builds the config's recipe as the training driver does (its widths,
 batch, T, crop and rates; TF32 at PyTorch's default), feeds it one seeded
 random batch of the config's shapes already on the card (the step's cost
-does not depend on the pixels), runs a few steps to warm up, then
-`--iters` steps, and prints one JSON object with
+does not depend on the pixels), and measures the step twice, each on a
+recipe of its own: eager (the recipe's plain step) and through the
+driver's compiled step (its CUDA graph, captured at the second call and
+replayed after).  Each runs a few steps to warm up, then `--iters`
+steps, and the tool prints one JSON object with, for each route,
   - step_ms: device-synchronised host time per step,
-  - busy_ms: the sum of the device time of the kernels of one step,
+  - host_ms: the host time until a call returns, on an idle device,
+  - busy_ms: the sum of the device time of the kernels of one step (the
+    profiler lists the kernels of a graph's replay too),
+  - device_ms: CUDA events around --iters steps back to back, per step,
   - idle_share: 1 - busy_ms / step_ms,
-  - kernel_launches_per_step,
+  - kernel_launches_per_step (the profiler's),
+  - top_kernels: the kernels with the most device time per step,
+and for the eager step of a recipe with one loss (not the GAN)
   - phase_ms: the forward pass with the loss, the backward pass and the
     optimizer's update, each timed apart with the device synchronised
-    around it (so they sum to more than step_ms, where they overlap),
-  - top_kernels: the kernels with the most device time per step,
-and, with --out, writes the same object to FILE.
+    around it (so they sum to more than step_ms, where they overlap);
+with --out, it writes the same object to FILE.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from ..train import denoise, driver
+from ..train import denoise, driver, vsr
 from ..train.schedules import define_lr_schedule
 
 
@@ -45,6 +52,51 @@ def batch_for(opt: dict, recipe, dev: torch.device) -> tuple[torch.Tensor, torch
     if isinstance(recipe.cfg, denoise.DenoiseTrainConfig):
         return denoise.noisy_input(recipe.cfg, gt, 0)[0], gt
     return torch.from_numpy(rng.random((n, t, crop // s, crop // s, 3), dtype=np.float32)).to(dev), gt
+
+
+def _profile_steps(step, iters: int) -> dict:
+    """step() `iters` times back to back: host ms per synchronised step,
+    host ms until a call returns on an idle device, device ms per step
+    between CUDA events, and the profiler's kernels."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / iters * 1e3
+    host = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        step()
+    end.record()
+    torch.cuda.synchronize()
+    device_ms = start.elapsed_time(end) / iters
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            step()
+        torch.cuda.synchronize()
+
+    per_step = 1e-3 / iters  # profiler us over iters -> ms per step
+    # device events, less the user annotations PyTorch draws on the device
+    # timeline around work it also lists (Optimizer.step#Adam.step)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    busy_ms = sum(e.device_time_total for e in kernels) * per_step
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total * per_step
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {"step_ms": step_ms, "host_ms": sorted(host)[len(host) // 2], "device_ms": device_ms,
+            "busy_ms": busy_ms, "kernel_launches_per_step": len(kernels) / iters,
+            "top_kernels": [{"name": k[:120], "ms": v} for k, v in top]}
 
 
 def main(argv=None) -> dict:
@@ -63,66 +115,56 @@ def main(argv=None) -> dict:
 
     opt = driver.load_config(args.config)
     recipe = driver.build_training(opt, dev)
-    sched = define_lr_schedule(opt["train"]["generator"].get("lr_schedule"), recipe.cfg.lr)
     x, gt = batch_for(opt, recipe, dev)
-    state = recipe.state
+    res = {"card": card, "config": str(args.config), "recipe": type(recipe.cfg).__name__,
+           "input_shape": list(x.shape), "gt_shape": list(gt.shape), "iters": args.iters}
 
-    phase_s = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
+    if isinstance(recipe.state, vsr.TrainState):
+        sched = define_lr_schedule(opt["train"]["generator"].get("lr_schedule"), recipe.cfg.lr)
+        state = recipe.state
+        phase_s = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
 
-    def step(timed: bool = False):
-        # the work of recipe.step (vsr.apply_gradients), phase by phase
-        def mark(name, t0):
-            if timed:
-                torch.cuda.synchronize()
-                phase_s[name] += time.perf_counter() - t0
-            return time.perf_counter()
+        def eager(timed: bool = False):
+            # the work of the recipe's eager step, phase by phase
+            def mark(name, t0):
+                if timed:
+                    torch.cuda.synchronize()
+                    phase_s[name] += time.perf_counter() - t0
+                return time.perf_counter()
 
-        t0 = time.perf_counter()
-        loss, _ = recipe.loss_fn(state.params, x, gt)
-        t0 = mark("forward", t0)
-        state.opt.zero_grad(set_to_none=True)
-        loss.backward()
-        t0 = mark("backward", t0)
-        for group in state.opt.param_groups:
-            group["lr"] = sched(state.step)
-        state.opt.step()
-        state.step += 1
-        mark("optimizer", t0)
+            t0 = time.perf_counter()
+            vsr.set_rate(state.opt, sched(state.step))
+            loss, _ = recipe.loss_fn(state.params, x, gt)
+            t0 = mark("forward", t0)
+            state.opt.zero_grad(set_to_none=True)
+            loss.backward()
+            t0 = mark("backward", t0)
+            state.opt.step()
+            state.step += 1
+            mark("optimizer", t0)
+    else:
+        # the GAN: one call of its eager step, whose losses are its own
+        def eager(timed: bool = False):
+            recipe.step.eager(recipe.state, x, gt)
 
-    for _ in range(3):
-        step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(args.iters):
-        step()
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / args.iters * 1e3
-    for _ in range(args.iters):
-        step(timed=True)
+    graphed = driver.build_training(opt, dev)
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(args.iters):
+    def graphs():
+        graphed.step(graphed.state, x, gt)
+
+    routes = {}
+    for name, step in (("eager", eager), ("graphs", graphs)):
+        for _ in range(3):  # the graphs: warm-up, capture, replay
             step()
-        torch.cuda.synchronize()
-
-    per_step = 1e-3 / args.iters  # profiler us over iters -> ms per step
-    # device events, less the user annotations PyTorch draws on the device
-    # timeline around work it also lists (Optimizer.step#Adam.step)
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
-    busy_ms = sum(e.device_time_total for e in kernels) * per_step
-    by_name: dict[str, float] = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total * per_step
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    res = {
-        "card": card, "config": str(args.config), "recipe": type(recipe.cfg).__name__,
-        "input_shape": list(x.shape), "gt_shape": list(gt.shape), "iters": args.iters,
-        "step_ms": step_ms, "busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / step_ms,
-        "kernel_launches_per_step": len(kernels) / args.iters,
-        "phase_ms": {k: v / args.iters * 1e3 for k, v in phase_s.items()},
-        "top_kernels": [{"name": k[:120], "ms": v} for k, v in top],
-    }
+        routes[name] = _profile_steps(step, args.iters)
+    if isinstance(recipe.state, vsr.TrainState):
+        for _ in range(args.iters):
+            eager(timed=True)
+        routes["eager"]["phase_ms"] = {k: v / args.iters * 1e3 for k, v in phase_s.items()}
+    routes["graphs"]["graphs"] = graphed.step.num_graphs
+    for r in routes.values():
+        r["idle_share"] = 1.0 - r["busy_ms"] / r["step_ms"]
+    res.update(routes)
     text = json.dumps(res, indent=1)
     print(text)
     if args.out:

@@ -10,6 +10,11 @@ reference leaves save_training_state a TODO, models/base_model.py:78-89).  Files
 the run's root, as the JAX package names its orbax directories, so
 `latest_checkpoint` orders both the same way.  They load with
 `weights_only=True`.
+
+A load writes into the template's own tensors (parameters, optimizer
+moments, counts and tensor rates): the driver's CUDA graphs of the step
+(train/compiled.py) read and write them where they lie, so they stay
+valid across a load.
 """
 
 from __future__ import annotations
@@ -48,6 +53,8 @@ def save_checkpoint(root: str, state, step: int) -> str:
             v = v.state_dict()
         elif isinstance(v, (dict, list)):
             v = _detached(v)
+        elif isinstance(v, torch.Tensor):
+            v = int(v)  # a count kept on the device (a GAN state's cnt_upd_d)
         blob[f.name] = v
     torch.save(blob, path)
     return path
@@ -70,9 +77,48 @@ def _copy_params(path: str, dst_tree, src_tree) -> None:
             d.copy_(s)
 
 
+# what an optimizer's implementation is, rather than its state: the
+# template's own settings stay
+_IMPLEMENTATION = ("params", "lr", "capturable", "foreach", "fused", "differentiable", "param_names")
+
+
+def _load_optimizer(path: str, opt: torch.optim.Optimizer, saved: dict) -> None:
+    """The saved state dict into `opt`'s own tensors.  An optimizer that
+    has made no state yet (a plain one, before its first update) loads
+    it as torch.optim makes it; one that has (a capturable one made its
+    state at once, vsr.make_optimizer) gets each tensor copied in, and
+    zeros where the saved optimizer had made none.  A tensor rate is
+    filled with the saved rate; a float one set to it."""
+    params = [p for g in opt.param_groups for p in g["params"]]
+    ids = [i for g in saved["param_groups"] for i in g["params"]]
+    if len(ids) != len(params) or len(saved["param_groups"]) != len(opt.param_groups):
+        raise ValueError(f"{path}: an optimizer over {len(ids)} tensors, the recipe's has {len(params)}")
+    rates = [g["lr"] for g in opt.param_groups]
+    if not any(opt.state.get(p) for p in params):
+        opt.load_state_dict(saved)
+    else:
+        with torch.no_grad():
+            for i, p in zip(ids, params):
+                src = saved["state"].get(i, {})
+                for key, t in opt.state[p].items():
+                    if key in src:
+                        t.copy_(src[key])
+                    else:
+                        t.zero_()
+        for g, sg in zip(opt.param_groups, saved["param_groups"]):
+            g.update({k: v for k, v in sg.items() if k not in _IMPLEMENTATION})
+    for g, own, sg in zip(opt.param_groups, rates, saved["param_groups"]):
+        if isinstance(own, torch.Tensor):
+            own.fill_(float(sg["lr"]))
+            g["lr"] = own
+        elif isinstance(sg["lr"], torch.Tensor):
+            g["lr"] = float(sg["lr"])
+
+
 def load_checkpoint(path: str, template):
-    """Restore a checkpoint into `template` (a fresh state of the same
-    recipe, which gives the structure and the device), in place."""
+    """Restore a checkpoint into `template` (a state of the same recipe,
+    which gives the structure and the device), in place: into its own
+    tensors."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     names = [f.name for f in dataclasses.fields(template)]
     if sorted(ckpt) != sorted(names):
@@ -80,9 +126,11 @@ def load_checkpoint(path: str, template):
     for name in names:
         v = getattr(template, name)
         if isinstance(v, torch.optim.Optimizer):
-            v.load_state_dict(ckpt[name])
+            _load_optimizer(path, v, ckpt[name])
         elif isinstance(v, (dict, list)):
             _copy_params(path, v, ckpt[name])
+        elif isinstance(v, torch.Tensor):
+            v.fill_(int(ckpt[name]))
         else:
             setattr(template, name, int(ckpt[name]))
     return template

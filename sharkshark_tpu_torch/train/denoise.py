@@ -27,8 +27,9 @@ import numpy as np
 import torch
 
 from ..models import bsvd
+from .compiled import SplitStep, eager_step
 from .losses import define_criterion
-from .vsr import TrainState, apply_gradients, new_train_state
+from .vsr import TrainState, count_update, new_train_state, optimizer_update, set_rate
 
 __all__ = [
     "DenoiseTrainConfig",
@@ -109,19 +110,24 @@ def make_denoise_loss_fn(cfg: DenoiseTrainConfig = DenoiseTrainConfig()):
 
 def make_denoise_train_step(cfg: DenoiseTrainConfig = DenoiseTrainConfig(), schedule: Callable | None = None):
     """Returns `train_step(state, lr_data, gt_data) -> (state, logs)`, in
-    place as train/vsr.py's.  lr_data is ignored (denoising keeps the
-    resolution: the config pairs the GT dir with itself at scale 1);
-    gt_data: (N, T, H, W, 3) clean in [0,1]."""
+    place and split as train/vsr.py's.  lr_data is ignored (denoising
+    keeps the resolution: the config pairs the GT dir with itself at
+    scale 1); gt_data: (N, T, H, W, 3) clean in [0,1].  The noise is
+    drawn in the host prologue (its generator is seeded from the host
+    step), so the noisy clip and sigma enter the body as inputs."""
     sched = schedule or (lambda step: cfg.lr)
     loss_fn = make_denoise_loss_fn(cfg)
 
-    def train_step(state: TrainState, lr_data, gt_data):
-        del lr_data
+    def prologue(state: TrainState, lr_data, gt_data):
+        set_rate(state.opt, sched(state.step))
         noisy4, sigma = noisy_input(cfg, gt_data, state.step)
+        return noisy4, gt_data, sigma
+
+    def body(state: TrainState, noisy4, gt_data, sigma):
         loss, logs = loss_fn(state.params, noisy4, gt_data)
-        apply_gradients(state, loss, sched)
+        optimizer_update(state.opt, loss)
         logs = {k: v.detach() for k, v in logs.items()}
         logs["sigma_mean"] = sigma.mean()
-        return state, logs
+        return logs
 
-    return train_step
+    return eager_step(SplitStep(prologue, body, count_update))

@@ -18,6 +18,15 @@ train: data loader -> (BD degradation on the device) -> train step,
 periodic test with metric JSON, checkpoints, and an exact resume
 (optimizer state included, both networks' for the GAN).  The data order
 and crops are seeded from manual_seed.
+
+Every function the JAX driver jits runs compiled per input signature
+here, as CUDA graphs on the card (eagerly on the CPU): each recipe's
+train step, forward, backward and optimizer update in one graph
+(train/compiled.py), the BD degradation and test mode's inference
+(upscale/jit_cache.py's ShapeCache; a training run keeps one inference
+cache for all its periodic tests, so a test at a recurring shape
+replays), and profile mode's timed calls.
+
 test: each test set through the generator's inference (FRNet's through
 K3's wrapper, as the live service runs it), outputs and metrics saved;
 a window generator's edge frames have no output and are not scored.
@@ -37,8 +46,10 @@ import torch
 
 from ..models import bsvd, egvsr, srvgg, variants
 from ..models.torch_import import load_state_dict, to_tensors
+from ..upscale.jit_cache import ShapeCache
 from ..utils import get_logger, require_module, resolve_device
 from . import checkpoint as ckpt
+from .compiled import TrainStepCache
 from .datasets import (
     PairedFolderDataset,
     PairedFolderTrainDataset,
@@ -202,7 +213,9 @@ class Recipe(NamedTuple):
     """A config's training recipe: its train config (VSRTrainConfig,
     SISRTrainConfig, DenoiseTrainConfig or VSRGANConfig), a fresh seeded
     state (TrainState, or GANTrainState), train_step(state, lr, gt) ->
-    (state, logs) and the step's loss: loss_fn(params, input, gt) ->
+    (state, logs) compiled per signature (compiled.TrainStepCache; its
+    `eager` is the recipe's plain step) and the step's loss:
+    loss_fn(params, input, gt) ->
     (loss, logs) (for denoise the input is the noisy clip with its noise
     map, denoise.noisy_input), or for the GAN its vsrgan.GANLosses."""
 
@@ -215,8 +228,13 @@ class Recipe(NamedTuple):
 def build_training(opt: dict, device: str | torch.device = "cuda") -> Recipe:
     """The config's recipe: VSRGAN for a config with a
     model.discriminator block, SISR for an srvgg generator, denoise for
-    bsvd, else VSR (FRNet)."""
-    dev = resolve_device(device)
+    bsvd, else VSR (FRNet); its step compiled, as the JAX driver wraps
+    each in jax.jit."""
+    recipe = _build_recipe(opt, resolve_device(device))
+    return recipe._replace(step=TrainStepCache(recipe.step))
+
+
+def _build_recipe(opt: dict, dev: torch.device) -> Recipe:
     if opt.get("model", {}).get("discriminator"):
         return _build_gan(opt, dev)
     gtr = opt["train"]["generator"]
@@ -314,15 +332,21 @@ def _build_gan(opt: dict, dev: torch.device) -> Recipe:
 
 def make_degrade(opt: dict, device: str | torch.device = "cuda"):
     """The BD degradation of the config's training batches on `device`
-    (gt with its border -> {'gt', 'lr'}), or None for BI data."""
+    (gt with its border -> {'gt', 'lr'}), or None for BI data; compiled
+    per batch shape (a ShapeCache, `degrade.cache`), as the JAX driver
+    jits it.  It runs without autograd: the train loop has grad enabled,
+    under which a ShapeCache runs eagerly."""
     dopt = opt["dataset"]["degradation"]
     if dopt["type"] != "BD":
         return None
     kernel = torch.from_numpy(gaussian_downsample_kernel(dopt.get("sigma", 1.5))).to(resolve_device(device))
+    cache = ShapeCache(lambda gt: prepare_data(gt, kernel, opt["scale"], dopt.get("sigma", 1.5)))
 
     def degrade(gt):
-        return prepare_data(gt, kernel, opt["scale"], dopt.get("sigma", 1.5))
+        with torch.no_grad():
+            return cache(gt)
 
+    degrade.cache = cache
     return degrade
 
 
@@ -345,8 +369,11 @@ def train(opt: dict, device: str | torch.device = "cuda") -> dict:
     train.ckpt_dir unless train.resume is false.  Returns {'iter',
     'resumed_from', 'losses' (l_total of each iteration this run; the
     GAN's l_total_G), 'logs' (each log's values, one an iteration),
-    'checkpoints', 'tests' (label -> results of the periodic tests)}, and
-    for the GAN 'cnt_upd_d' (D updates since the run's first step)."""
+    'checkpoints', 'tests' (label -> results of the periodic tests),
+    'step_graphs' and 'test_graphs' (the compiled step's and the periodic
+    tests' inference's signatures and graphs; None without periodic
+    tests)}, and for the GAN 'cnt_upd_d' (D updates since the run's first
+    step)."""
     dev = resolve_device(device)
     np.random.seed(opt.get("manual_seed", 0))
     recipe = build_training(opt, dev)
@@ -365,6 +392,8 @@ def train(opt: dict, device: str | torch.device = "cuda") -> dict:
     save_freq = opt["train"].get("ckpt_freq", 5000)
     test_freq = opt.get("test", {}).get("test_freq", 0)
 
+    # the periodic tests' inference, compiled once for all of them
+    infer = ShapeCache(define_generator(opt, dev)["infer"]) if test_freq else None
     res = {"resumed_from": resume, "losses": [], "logs": {}, "checkpoints": [], "tests": {}}
     history: dict[str, list] = {}
     it = state.step
@@ -387,14 +416,17 @@ def train(opt: dict, device: str | torch.device = "cuda") -> dict:
                 res["checkpoints"].append(ckpt.save_checkpoint(ckpt_dir, state, it))
                 log.info("saved %s", res["checkpoints"][-1])
             if test_freq and it % test_freq == 0:
-                res["tests"][f"iter_{it}"] = test(opt, params=state.params, label=f"iter_{it}", device=dev)
+                res["tests"][f"iter_{it}"] = test(opt, params=state.params, label=f"iter_{it}", device=dev,
+                                                  infer=infer)
     if not (save_freq and it % save_freq == 0):
         res["checkpoints"].append(ckpt.save_checkpoint(ckpt_dir, state, it))
     res["iter"] = it
+    res["step_graphs"] = {"signatures": step_fn.num_signatures, "graphs": step_fn.num_graphs}
+    res["test_graphs"] = infer and {"signatures": infer.num_signatures, "graphs": infer.num_graphs}
     res["logs"] = {k: torch.stack(v).tolist() for k, v in history.items()}
     res["losses"] = res["logs"].get("l_total_G", res["logs"].get("l_total", []))
     if hasattr(state, "cnt_upd_d"):
-        res["cnt_upd_d"] = state.cnt_upd_d
+        res["cnt_upd_d"] = int(state.cnt_upd_d)
     log.info("training done at iter %d", it)
     return res
 
@@ -414,11 +446,18 @@ def _load_generator_params(gen: dict, load_path: str, dev: torch.device) -> dict
     return gen["from_torch"](load_state_dict(load_path))
 
 
-def test(opt: dict, params=None, label: str = "final", device: str | torch.device = "cuda") -> dict:
-    """Run each `test*` dataset split through the generator; returns
-    {split: average metrics}."""
+def test(opt: dict, params=None, label: str = "final", device: str | torch.device = "cuda",
+         infer: ShapeCache | None = None) -> dict:
+    """Run each `test*` dataset split through the generator's inference
+    compiled per clip shape: `infer`, a ShapeCache of the config's
+    gen['infer'] that several calls share (a training run's periodic
+    tests), or one of this call's own; returns {split: average metrics}.
+    The parameters are inputs, copied into a graph's buffers at a
+    replay."""
     dev = resolve_device(device)
     gen = define_generator(opt, dev)
+    if infer is None:
+        infer = ShapeCache(gen["infer"])
     if params is None:
         load_path = opt["model"]["generator"].get("load_path")
         if not load_path:
@@ -444,7 +483,7 @@ def test(opt: dict, params=None, label: str = "final", device: str | torch.devic
             t_real = lr.shape[0]
             lr, n_pad = egvsr.pad_sequence(lr, n_pad_front, padding_mode)
             with torch.no_grad():
-                hr = gen["infer"](params, lr).cpu().numpy()
+                hr = infer(params, lr).cpu().numpy()
             if n_pad and len(hr) == lr.shape[0]:
                 hr = hr[n_pad : n_pad + t_real]  # drop the warm-up outputs
             hr_u8 = np.clip(hr * 255 + 0.5, 0, 255).astype(np.uint8)

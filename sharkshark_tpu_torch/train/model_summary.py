@@ -7,7 +7,8 @@ which counts the multiply-adds of convolutions and matrix products
 (2 FLOPs each) and nothing else; XLA's cost analysis, which the JAX
 package reads, also counts elementwise work, so its figure is higher on
 the same model.  A hand kernel's launch is not a torch operator and is
-not counted.
+not counted.  `benchmark_fps` times the function compiled per shape, as
+the JAX one times jax.jit(fn).
 """
 
 from __future__ import annotations
@@ -44,13 +45,20 @@ def _sync(out) -> None:
 
 
 def benchmark_fps(fn: Callable, *example_args, iters: int = 10) -> float:
-    """Calls of fn(*example_args) per second of wall time, after one
-    warm-up call, with the device synchronised at both ends."""
+    """Calls of the compiled fn(*example_args) per second of wall time,
+    as the JAX function times jax.jit(fn): fn through a ShapeCache (on
+    the card a CUDA graph replayed; eagerly on the CPU), timed after the
+    calls that compile it (CAPTURE_CALL: one eager, one captured), with
+    the device synchronised at both ends."""
+    from ..upscale.jit_cache import CAPTURE_CALL, ShapeCache
+
+    compiled = ShapeCache(fn)
     with torch.no_grad():
-        _sync(fn(*example_args))
+        for _ in range(CAPTURE_CALL):
+            _sync(compiled(*example_args))
         t0 = time.perf_counter()
         out = None
         for _ in range(iters):
-            out = fn(*example_args)
+            out = compiled(*example_args)
         _sync(out)
     return iters / (time.perf_counter() - t0)

@@ -17,7 +17,7 @@ import torch
 
 from ..models import srvgg
 from .losses import define_criterion
-from .vsr import TrainState, apply_gradients, new_train_state
+from .vsr import TrainState, new_train_state, split_step
 
 __all__ = ["SISRTrainConfig", "create_sisr_state", "make_sisr_loss_fn", "make_sisr_train_step"]
 
@@ -58,16 +58,8 @@ def make_sisr_loss_fn(cfg: SISRTrainConfig = SISRTrainConfig()):
 
 def make_sisr_train_step(cfg: SISRTrainConfig = SISRTrainConfig(), schedule: Callable | None = None):
     """Returns `train_step(state, lr_data, gt_data) -> (state, logs)`, in
-    place as train/vsr.py's.
+    place and split as train/vsr.py's.
 
     lr_data: (N, T, h, w, C) in [0,1] (T=1 for pure image datasets);
     gt_data: (N, T, h*s, w*s, C)."""
-    sched = schedule or (lambda step: cfg.lr)
-    loss_fn = make_sisr_loss_fn(cfg)
-
-    def train_step(state: TrainState, lr_data, gt_data):
-        loss, logs = loss_fn(state.params, lr_data, gt_data)
-        apply_gradients(state, loss, sched)
-        return state, {k: v.detach() for k, v in logs.items()}
-
-    return train_step
+    return split_step(make_sisr_loss_fn(cfg), schedule or (lambda step: cfg.lr))

@@ -14,11 +14,16 @@ update.  It updates `state` in place.
 
 - The adaptive D policy (vsrgan_model.py:193-215) skips the D update
   when D is too strong: distance = mean log sigmoid(real) - mean log
-  sigmoid(fake) >= update_threshold.  The step reads that one decision
-  on the host (a synchronisation a step) and then does not step D's
-  optimizer, so a skipped step leaves D's parameters and its Adam state,
-  moments and count alike, as they were.  The 'always' policy reads
-  nothing.
+  sigmoid(fake) >= update_threshold.  The decision stays on the device,
+  as in the JAX step's jnp.where blend: D's Adam update always runs, and
+  D's parameters, both moments and its count are then blended with
+  torch.where on the flag, so a skipped step leaves them as they were,
+  exactly.  cnt_upd_d (a 0-d int64 tensor on the state's device) and
+  the l_gan_D log are device values too.  So the step reads nothing on
+  the host and its body captures into one CUDA graph (train/
+  compiled.py).  (A plain optimizer, on the CPU, makes a leaf's state
+  at its first update; a skipped first update drops what it made, which
+  reads the CPU flag, as the old route left it unmade.)
 - Each loss is differentiated with torch.autograd.grad over its own
   network's leaves only, so D never collects the G loss's gradients.
 - The rates are fixed at cfg.lr_g and cfg.lr_d: the JAX step updates
@@ -41,8 +46,9 @@ from ..ops import resize
 from ..ops.warp import backward_warp
 from ..utils import resolve_device
 from . import discriminators as D
+from .compiled import SplitStep, eager_step
 from .losses import define_criterion
-from .vsr import _trainable_copy, make_optimizer, param_leaves
+from .vsr import _trainable_copy, count_update, make_optimizer, param_leaves
 
 __all__ = ["VSRGANConfig", "GANTrainState", "GANLosses", "create_gan_state", "make_gan_loss_fns",
            "make_gan_train_step"]
@@ -75,14 +81,15 @@ class VSRGANConfig(NamedTuple):
 class GANTrainState:
     """params_g / params_d: nested dicts of leaf tensors (requires_grad);
     opt_g / opt_d: Adam over param_leaves of each; step: updates done;
-    cnt_upd_d: how many of them updated D."""
+    cnt_upd_d: how many of them updated D, a 0-d int64 tensor on the
+    parameters' device (an int is made one at the next step)."""
 
     params_g: dict
     params_d: dict
     opt_g: torch.optim.Optimizer
     opt_d: torch.optim.Optimizer
     step: int = 0
-    cnt_upd_d: int = 0
+    cnt_upd_d: torch.Tensor | int = 0
 
     @property
     def params(self) -> dict:
@@ -114,6 +121,7 @@ def create_gan_state(
         params_g, params_d,
         make_optimizer(param_leaves(params_g), cfg.lr_g, cfg.beta1, cfg.beta2),
         make_optimizer(param_leaves(params_d), cfg.lr_d, cfg.beta1, cfg.beta2),
+        cnt_upd_d=torch.zeros((), dtype=torch.int64, device=dev),
     )
 
 
@@ -239,21 +247,62 @@ def _update(opt: torch.optim.Optimizer, leaves: list, grads) -> None:
         p.grad = None
 
 
+def _blended_update(opt: torch.optim.Optimizer, leaves: list, grads, flag: torch.Tensor) -> None:
+    """_update, then each leaf and its optimizer state (moments, count)
+    where(flag, updated, as before): the update where the 0-d bool `flag`
+    is set, nothing where it is not, bit for bit either way, with no host
+    read (JAX: jnp.where over the new and old trees)."""
+    with torch.no_grad():
+        old_params = [p.detach().clone() for p in leaves]
+        old_state = {p: {k: v.clone() for k, v in opt.state[p].items()} for p in leaves if opt.state.get(p)}
+    _update(opt, leaves, grads)
+    with torch.no_grad():
+        for p, old in zip(leaves, old_params):
+            p.copy_(torch.where(flag, p, old))
+        for p in leaves:
+            st, old = opt.state.get(p), old_state.get(p)
+            if not st:
+                continue
+            if old is None:
+                # made by this update (a plain optimizer's lazy state): a
+                # skipped update leaves it unmade
+                if not bool(flag):
+                    del opt.state[p]
+                continue
+            for k, v in st.items():
+                v.copy_(torch.where(flag, v, old[k]))
+
+
 def make_gan_train_step(cfg: VSRGANConfig = VSRGANConfig(), feature_extractor: Callable | None = None):
     """Returns `train_step(state, lr_data (N,T,h,w,C), gt_data
     (N,T,H,W,C)) -> (state, logs)`, which updates `state` in place and
-    returns it with detached logs (the JAX step's keys)."""
+    returns it with detached logs (the JAX step's keys).  Split as
+    train/compiled.py's SplitStep (`train_step.split`): the prologue
+    makes cnt_upd_d a device tensor, the body is the whole step, the
+    epilogue counts it."""
     losses = make_gan_loss_fns(cfg, feature_extractor)
     adaptive = cfg.update_policy == "adaptive"
 
-    def train_step(state: GANTrainState, lr_data, gt_data):
+    def prologue(state: GANTrainState, lr_data, gt_data):
+        if not isinstance(state.cnt_upd_d, torch.Tensor):
+            dev = param_leaves(state.params_d)[0].device
+            state.cnt_upd_d = torch.tensor(int(state.cnt_upd_d), dtype=torch.int64, device=dev)
+        return lr_data, gt_data
+
+    def body(state: GANTrainState, lr_data, gt_data):
         ctx = losses.prepare(state.params_g, lr_data, gt_data)
         d_leaves = param_leaves(state.params_d)
         loss_d, aux = losses.d_loss(state.params_d, ctx)
         grads_d = torch.autograd.grad(loss_d, d_leaves, allow_unused=True)
-        upd_d = not adaptive or bool(aux["distance"] < cfg.update_threshold)  # the one host read
-        if upd_d:
+        if adaptive:
+            upd_d = aux["distance"] < cfg.update_threshold  # on the device
+            _blended_update(state.opt_d, d_leaves, grads_d, upd_d)
+            state.cnt_upd_d.add_(upd_d)
+            l_gan_d = torch.where(upd_d, loss_d, torch.zeros_like(loss_d))
+        else:
             _update(state.opt_d, d_leaves, grads_d)
+            state.cnt_upd_d.add_(1)
+            l_gan_d = loss_d
 
         g_leaves = param_leaves(state.params_g)
         loss_g, logs = losses.g_loss(state.params_g, state.params_d, ctx, aux)
@@ -261,13 +310,11 @@ def make_gan_train_step(cfg: VSRGANConfig = VSRGANConfig(), feature_extractor: C
         _update(state.opt_g, g_leaves, grads_g)
 
         logs.update(
-            l_gan_D=loss_d if upd_d else torch.zeros_like(loss_d),
+            l_gan_D=l_gan_d,
             p_real_D=aux["real_logits"].mean(),
             p_fake_D=aux["fake_logits"].mean(),
             distance=aux["distance"],
         )
-        state.step += 1
-        state.cnt_upd_d += int(upd_d)
-        return state, {k: v.detach() for k, v in logs.items()}
+        return {k: v.detach() for k, v in logs.items()}
 
-    return train_step
+    return eager_step(SplitStep(prologue, body, count_update))
