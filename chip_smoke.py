@@ -162,10 +162,16 @@ Phases (any failure exits non-zero, and nothing is caught):
      peak memory per device of each run;
  16. training over the mesh and the last tools: make_sharded_train_step
      at configs/egvsr_bd.yml's FRNet (nf 64, nb 10, BD, T 10, the minted
-     weights) against the single-device step, at its crop 128 and batch
-     4 on a data 2 x spatial 2 mesh and at crop 1024 and batch 2 on
-     spatial 2 (bands that cut), in float32 (TF32 off) and float64, with
-     ms a step; tools/warp_fidelity.py at 2160x3840 (three flows, three
+     weights), compiled (on one card the whole step one CUDA graph, on
+     several cards per-band segment graphs), against the single-device
+     step through its TrainStepCache, at its crop 128 and batch 4 on a
+     data 2 x spatial 2 mesh and at crop 1024 and batch 2 on spatial 2
+     (bands that cut), in float32 (TF32 off) and float64, each compared
+     step a replay; the compiled sharded step against its eager step
+     under deterministic algorithms (bit for bit on one card); ms a
+     step, host ms a call, idle share, graphs held and peak memory of
+     the single-device and sharded steps, eager and compiled;
+     tools/warp_fidelity.py at 2160x3840 (three flows, three
      K3 launches); tools/ingest_weights.py on the minted SRVGG file and
      on two corrupted copies, which it must refuse; tools/bench_matrix.py
      --configs 3,0 --suites sr denoise --iters 2; tools/mint_lpips.py's
@@ -191,9 +197,10 @@ unavailable or the script stands outside the repo checkout.
 
     python3 chip_smoke.py --mesh-only
 
-runs phases 1, 2, phase 6's per-frame EGVSR service and phase 15 alone
-(on a machine with several cards: the bands on distinct cards), prints
-their JSON and the card line, and no result line.
+runs phases 1, 2, phase 6's per-frame EGVSR service, phase 15 and
+phase 16's sharded train step alone (on a machine with several cards:
+the bands on distinct cards), prints their JSON and the card line, and
+no result line.
 
     python3 chip_smoke.py --train-only
 
@@ -3197,58 +3204,84 @@ def mesh_order_grads(cfg, params: dict, lr: torch.Tensor, gt: torch.Tensor, data
     return [p.grad.detach().clone() for p in vsr.param_leaves(params)]
 
 
+def load_in_place(state, snap: list) -> None:
+    """Write a state_snapshot back into the state's own tensors (as
+    train/checkpoint.py loads): a compiled step keeps its signature and
+    its graph."""
+    from sharkshark_tpu_torch.train import compiled
+
+    with torch.no_grad():
+        for t, v in zip(compiled.state_tensors(state), snap):
+            t.copy_(v)
+    state.step = 0
+
+
 def sharded_train_case(cfg, sched, params: dict, crop: int, batch: int, data: int, spatial: int,
-                       iters: int = 3, t: int = 10) -> dict:
-    """One step of make_sharded_train_step on a data x spatial mesh of
-    mesh_devices against one step of the single-device train step, from
-    the same weights on the same clips, on the card with TF32 off: in
-    float32 the loss's relative error and every gradient leaf's ||delta||
-    / ||g|| beside the leaf's float32 floor (the single-device float32
-    gradient against the float64 one) and beside the same arithmetic
-    summed in the mesh's order (mesh_order_grads) against the plain
-    step, and the sharded step against that reading; in float64 the
-    same errors, which hold the sharding's arithmetic to the CPU tests'
-    tolerances (loss 1e-5, leaves 1e-4) once rounding is out of the way;
-    ms per float32 step of each (median of `iters` after the compared
-    step) and peak memory."""
+                       iters: int = 4, t: int = 10) -> dict:
+    """make_sharded_train_step on a data x spatial mesh of mesh_devices
+    (on one card one device repeated: the whole body in one CUDA graph; on
+    several, the per-band segment graphs), compiled as it is returned,
+    against the single-device train step through its TrainStepCache, from
+    the same weights on the same clips, on the card with TF32 off.  Each
+    compared step is a replay: the compiled step's warm-up and capture
+    run on the state, which is then loaded back to its start in place.
+    In float32 the loss's relative error and every gradient leaf's
+    ||delta|| / ||g|| beside the leaf's float32 floor (the single-device
+    float32 gradient against the float64 one) and beside the same
+    arithmetic summed in the mesh's order (mesh_order_grads) against the
+    plain step, and the sharded step against that reading; in float64
+    the same errors, which hold the sharding's arithmetic to the CPU
+    tests' tolerances (loss 1e-5, leaves 1e-4) once rounding is out of
+    the way.  Then the compiled sharded step against its eager step
+    (check_sharded_graphs) and the four routes' times
+    (time_sharded_routes)."""
     from sharkshark_tpu_torch.models.torch_import import to_tensors
     from sharkshark_tpu_torch.parallel import _bands, egvsr_radius, make_mesh, make_sharded_train_step
-    from sharkshark_tpu_torch.train import vsr
+    from sharkshark_tpu_torch.train import compiled, vsr
 
     clips = train_clips(batch, t, crop, seed=crop)
     step = vsr.make_train_step(cfg, sched)
     mesh = make_mesh(devices=mesh_devices(4)[: data * spatial], data=data, spatial=spatial)
-    sharded = make_sharded_train_step(step, mesh)
+    make = {"one": lambda: compiled.TrainStepCache(step), "sharded": lambda: make_sharded_train_step(step, mesh)}
 
-    def run(fn, dtype, iters=0):
-        lr, gt = (x.to("cuda", dtype) for x in clips)
+    def fresh(dtype):
         leaves = _bands.tree_map(lambda x: x.detach().clone().requires_grad_(True),
                                  to_tensors(params, "cuda", dtype))
-        state = vsr.TrainState(leaves, vsr.make_optimizer(vsr.param_leaves(leaves), cfg.lr, cfg.beta1, cfg.beta2))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        state, logs = fn(state, lr, gt)
-        grads = [p.grad.detach().clone() for p in vsr.param_leaves(state.params)]
-        times = []
-        for _ in range(iters):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
+        return vsr.TrainState(leaves, vsr.make_optimizer(vsr.param_leaves(leaves), cfg.lr, cfg.beta1, cfg.beta2))
+
+    def run(name, dtype):
+        fn = make[name]()
+        lr, gt = (x.to("cuda", dtype) for x in clips)
+        state = fresh(dtype)
+        start = state_snapshot(state)
+        for _ in range(2):  # the warm-up and the capture
             fn(state, lr, gt)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        out = {"logs": {k: float(v) for k, v in logs.items()}, "grads": grads,
-               "ms": statistics.median(times) if times else None, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
-        del state, lr, gt
+        load_in_place(state, start)
+        state, logs = fn(state, lr, gt)
+        out = {"logs": {k: float(v) for k, v in logs.items()},
+               "grads": [p.grad.detach().clone() for p in vsr.param_leaves(state.params)],
+               "signatures": fn.num_signatures, "graphs": fn.num_graphs}
+        del state, lr, gt, fn
         torch.cuda.empty_cache()
         return out
 
     bands = _bands.split_width(crop // 4, list(mesh.devices[0]), 8, egvsr_radius(cfg.model_cfg))
+    wall = {}
     with cudnn_tf32(False):
-        runs = {(name, dtype): run(fn, dtype, iters if dtype == torch.float32 else 0)
-                for dtype in (torch.float32, torch.float64) for name, fn in (("one", step), ("sharded", sharded))}
+        t0 = time.perf_counter()
+        runs = {(name, dtype): run(name, dtype) for dtype in (torch.float32, torch.float64) for name in make}
+        wall["against_one_device"] = time.perf_counter() - t0
         lr, gt = (x.to("cuda") for x in clips)
+        t0 = time.perf_counter()
         ordered = mesh_order_grads(cfg, _bands.tree_map(lambda x: x.detach().clone().requires_grad_(True),
                                                         to_tensors(params, "cuda")), lr, gt, data, bands)
+        wall["mesh_order"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        same = check_sharded_graphs(make["sharded"], fresh, lr, gt)
+        wall["graphs_vs_eager"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        timing = time_sharded_routes(step, make["sharded"](), fresh, lr, gt, iters)
+        wall["timing"] = time.perf_counter() - t0
         del lr, gt
         torch.cuda.empty_cache()
     names = leaf_names(params)
@@ -3265,7 +3298,7 @@ def sharded_train_case(cfg, sched, params: dict, crop: int, batch: int, data: in
     vs_order = leaf_rel_errs(runs["sharded", torch.float32]["grads"], ordered)
     worst = sorted(range(len(rel32)), key=lambda i: -rel32[i])[:3]
     return {"crop": crop, "batch": batch, "t": t, "data": data, "spatial": spatial,
-            "devices": [str(d) for d in mesh.device_list],
+            "devices": [str(d) for d in mesh.device_list], "route": same["route"],
             "bands_lr_cols": [[b.lo, b.c0, b.c1, b.hi] for b in bands],
             "loss_one": runs["one", torch.float32]["logs"]["l_total"],
             "loss_sharded": runs["sharded", torch.float32]["logs"]["l_total"],
@@ -3277,11 +3310,145 @@ def sharded_train_case(cfg, sched, params: dict, crop: int, batch: int, data: in
             "leaves_over_bound": [names[i] for i in range(len(rel32))
                                   if rel32[i] > 1e-4 and (vs_order[i] > 1e-4 or rel32[i] > 2 * order[i])],
             "float64_loss_rel_err": loss64, "float64_grad_rel_err_max": max(rel64),
-            "ms_per_step_one": runs["one", torch.float32]["ms"],
-            "ms_per_step_sharded": runs["sharded", torch.float32]["ms"],
-            "peak_gb_one": runs["one", torch.float32]["peak_gb"],
-            "peak_gb_sharded": runs["sharded", torch.float32]["peak_gb"],
-            "peak_gb_float64_sharded": runs["sharded", torch.float64]["peak_gb"]}
+            "compared_graphs": {f"{name} {str(dtype)[6:]}": [r["signatures"], r["graphs"]]
+                                for (name, dtype), r in runs.items()},
+            "graphs_vs_eager": same, "timing": timing, "wall_s": wall}
+
+
+def check_sharded_graphs(make, fresh, lr: torch.Tensor, gt: torch.Tensor, steps: int = 3) -> dict:
+    """The compiled sharded step against its eager step (`fn.eager`) under
+    deterministic algorithms, from one state on the same clips: the
+    compiled step's warm-up and capture run first and its state is loaded
+    back to the start in place, so that each of `steps` compared steps is
+    a replay; every log of every step, the step's gradients, and at the
+    end every tensor of the state and the count.  On one card (the whole
+    body in one graph) they must be identical bit for bit.  Across cards
+    each device's backward runs on its own autograd thread, so the order
+    in which the first device adds the cards' gradient parts varies from
+    run to run; there the first step's gradient leaves must lie within
+    1e-5 of the eager step's, and the parameters' distance after the
+    steps is read beside the distance between two eager runs (a second
+    eager run, made across cards only)."""
+    from sharkshark_tpu_torch.train import compiled, vsr
+
+    def grads(state):
+        return [p.grad.detach().clone() for p in vsr.param_leaves(state.params)]
+
+    def params(state):
+        return torch.cat([p.detach().flatten().double() for p in vsr.param_leaves(state.params)])
+
+    with deterministic_algorithms():
+        fn = make()
+        route = "whole body" if isinstance(fn, compiled.TrainStepCache) else "segments"
+        g = fresh(torch.float32)
+        start = state_snapshot(g)
+        for _ in range(2):
+            fn(g, lr, gt)
+        load_in_place(g, start)
+        e = fresh(torch.float32)
+        e2 = e if route == "whole body" else fresh(torch.float32)
+        init = params(e)
+        logs_equal, grads_equal, first_rel = True, True, None
+        for i in range(steps):
+            want, got = fn.eager(e, lr, gt)[1], fn(g, lr, gt)[1]
+            if e2 is not e:
+                fn.eager(e2, lr, gt)
+            logs_equal &= all(torch.equal(got[k], want[k]) for k in want)
+            rel = leaf_rel_errs(grads(g), grads(e))
+            grads_equal &= max(rel) == 0.0
+            first_rel = max(rel) if first_rel is None else first_rel
+        torch.cuda.synchronize()
+        res = {"route": route, "steps": steps, "signatures": fn.num_signatures, "graphs": fn.num_graphs,
+               "bit_identical": bool(logs_equal and grads_equal and g.step == e.step and all(
+                   torch.equal(a, b) for a, b in zip(state_snapshot(g), state_snapshot(e)))),
+               "first_step_grad_rel_err_max": first_rel,
+               "params_graphs_vs_eager": float((params(g) - params(e)).norm() / (params(e) - init).norm()),
+               "params_eager_vs_eager": None if e2 is e else float(
+                   (params(e2) - params(e)).norm() / (params(e) - init).norm())}
+    del fn, g, e, e2
+    torch.cuda.empty_cache()
+    return res
+
+
+def busy_ms(call) -> dict:
+    """The device time of one call(): the union of its kernels' intervals
+    on each device (kernels that overlap count once), from the profiler
+    (CUPTI), in ms by device index."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    spans: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation:
+            spans.setdefault(e.device_index, []).append((e.time_range.start, e.time_range.end))
+    out = {}
+    for dev, iv in spans.items():
+        iv.sort()
+        total, (lo, hi) = 0.0, iv[0]
+        for a, b in iv[1:]:
+            if a > hi:
+                total, lo, hi = total + hi - lo, a, b
+            else:
+                hi = max(hi, b)
+        out[dev] = (total + hi - lo) / 1e3
+    return out
+
+
+def time_sharded_routes(step, sharded, fresh, lr: torch.Tensor, gt: torch.Tensor, iters: int = 4) -> dict:
+    """ms a float32 step of four routes, each on a fresh state: the
+    single-device step eager and through its TrainStepCache, and the
+    sharded step eager (`sharded.eager`) and compiled (`sharded`), the
+    compiled ones after their warm-up and capture, so that only replays
+    are timed: `iters` synchronised steps (medians; the compiled routes
+    1.5x as many), the host ms until a call returns on an idle device;
+    for the compiled routes the device's busy ms of one step (busy_ms,
+    each card's) and the idle share 1 - busy / step.  Memory: the peak
+    above the state's of the warm-up and capture (or the first eager
+    step), the memory the graphs' pools keep after them, and the peak of
+    the timed steps."""
+    from sharkshark_tpu_torch.train import compiled
+
+    routes = {"one_eager": step, "one_graphs": compiled.TrainStepCache(step), "sharded_eager": sharded.eager,
+              "sharded_graphs": sharded}
+    res = {}
+    for name in list(routes):
+        fn = routes.pop(name)
+        graphs = name.endswith("graphs")
+        state = fresh(torch.float32)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        for _ in range(2 if graphs else 1):
+            fn(state, lr, gt)
+        torch.cuda.synchronize()
+        first_peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+        torch.cuda.empty_cache()
+        pool = (torch.cuda.memory_reserved() - reserved) / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        times, host = [], []
+        for _ in range(iters * 3 // 2 if graphs else iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(state, lr, gt)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            host.append((t1 - t0) * 1e3)
+        ms = statistics.median(times)
+        row = {"ms": ms, "ms_min": min(times), "ms_max": max(times), "host_ms": statistics.median(host),
+               "first_peak_gb": first_peak, "pool_gb": pool,
+               "peak_gb": (torch.cuda.max_memory_allocated() - held) / 1e9, "graphs": getattr(fn, "num_graphs", 0)}
+        if graphs:
+            busy = busy_ms(lambda: fn(state, lr, gt))
+            row.update(busy_ms=busy, idle_share={d: 1.0 - b / ms for d, b in busy.items()})
+        res[name] = row
+        del fn, state
+    torch.cuda.empty_cache()
+    return res
 
 
 def run_sharded_train(card: str) -> list[dict]:
@@ -3296,7 +3463,9 @@ def run_sharded_train(card: str) -> list[dict]:
     loss summed in the mesh's order (mesh_order_grads), strays at least
     half as far from the plain step and the sharded step lies within
     1e-4 of that reading: rounding of the summation order, not of the
-    sharding."""
+    sharding.  The compiled sharded step equals its eager step bit for
+    bit on one card; across cards its first step's leaves lie within
+    1e-5 of the eager step's."""
     import yaml
     from sharkshark_tpu_torch.models import egvsr, torch_import
     from sharkshark_tpu_torch.train import driver
@@ -3309,19 +3478,35 @@ def run_sharded_train(card: str) -> list[dict]:
     for crop, batch, data, spatial in ((own["crop_size"], own["batch_size"], 2, 2), (1024, 2, 1, 2)):
         r = sharded_train_case(cfg, lambda s: cfg.lr, params, crop, batch, data, spatial,
                                t=opt["train"]["tempo_extent"])
+        same, tm = r["graphs_vs_eager"], r["timing"]
         log(f"sharded train step, FRNet nf {cfg.model_cfg.nf} nb {cfg.model_cfg.nb}, crop {crop}, batch {batch}, "
-            f"T {r['t']}, data {data} x spatial {spatial} on {r['devices']} (bands [lo, c0, c1, hi] "
-            f"{r['bands_lr_cols']}) against one device: float32 loss rel err {r['loss_rel_err']['l_total']:.3g}, "
+            f"T {r['t']}, data {data} x spatial {spatial} on {r['devices']} ({r['route']}; bands [lo, c0, c1, hi] "
+            f"{r['bands_lr_cols']}), compiled, against one device's compiled step: float32 loss rel err "
+            f"{r['loss_rel_err']['l_total']:.3g}, "
             f"max ||d||/||g|| {r['grad_rel_err_max']:.3g} over {r['grad_leaves']} leaves (worst [leaf, err, float32 "
             f"floor, mesh-order reading vs one device, sharded vs the reading]: {r['worst_leaves']}; over 1e-4: "
             f"{r['leaves_over_1e-4']}; the reading vs one device {r['mesh_order_rel_err_max']:.3g}, sharded vs the "
             f"reading {r['vs_mesh_order_rel_err_max']:.3g}); float64 loss {r['float64_loss_rel_err']['l_total']:.3g}, "
-            f"grads "
-            f"{r['float64_grad_rel_err_max']:.3g}; {r['ms_per_step_sharded']:.3f} ms a step sharded, "
-            f"{r['ms_per_step_one']:.3f} one device, peak {r['peak_gb_sharded']:.3f} / {r['peak_gb_one']:.3f} GB "
-            f"on {card}")
+            f"grads {r['float64_grad_rel_err_max']:.3g}; [signatures, graphs] of the compared steps "
+            f"{r['compared_graphs']}; on {card}")
+        log(f"  compiled vs eager sharded step, deterministic, {same['steps']} replays: bit identical "
+            f"{same['bit_identical']}, first step's max leaf err {same['first_step_grad_rel_err_max']:.3g}, "
+            f"params graphs vs eager {same['params_graphs_vs_eager']:.3g} (eager vs eager, across cards: "
+            f"{same['params_eager_vs_eager']}), {same['graphs']} graphs")
+        for name, x in tm.items():
+            busy = (f", busy {', '.join(f'{v:.3f}' for v in x['busy_ms'].values())} ms, idle "
+                    f"{', '.join(f'{v:.3f}' for v in x['idle_share'].values())}" if "busy_ms" in x else "")
+            log(f"  {name}: {x['ms']:.3f} ms a step ({x['ms_min']:.3f}-{x['ms_max']:.3f}), host {x['host_ms']:.3f} "
+                f"ms a call{busy}, graphs {x['graphs']}, first-call peak {x['first_peak_gb']:.3f} GB, pool "
+                f"{x['pool_gb']:.3f} GB, peak {x['peak_gb']:.3f} GB")
+        log(f"  wall s: {r['wall_s']}")
         assert max(r["float64_loss_rel_err"].values()) <= 1e-5 and r["float64_grad_rel_err_max"] <= 1e-4, r
         assert max(r["loss_rel_err"].values()) <= 1e-5 and not r["leaves_over_bound"], r
+        assert all(g >= 1 for _, g in r["compared_graphs"].values()), r["compared_graphs"]
+        if same["route"] == "whole body":
+            assert same["bit_identical"] and same["graphs"] == 1, same
+        else:
+            assert same["first_step_grad_rel_err_max"] <= 1e-5, same
         rows.append(r)
     return rows
 
@@ -3935,7 +4120,10 @@ def main() -> int:
         mesh_res = run_mesh_phase(service_mod, counters, tsm, cs, bench, bench_cs, card, defaults, egvsr_res,
                                   egvsr_out)
         log(f"phase 15 took {mesh_res['wall_s']:.1f} s")
-        log(json.dumps({"mesh": mesh_res}))
+        t_phase = time.perf_counter()
+        train_rows = run_sharded_train(card)
+        log(f"phase 16's sharded train step took {time.perf_counter() - t_phase:.1f} s")
+        log(json.dumps({"mesh": mesh_res, "sharded_train": train_rows}))
         log(card)
         return 0
 

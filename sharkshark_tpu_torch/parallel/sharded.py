@@ -37,12 +37,16 @@ factory keeps compiled forms: every band's device-local work runs
 through ShapeCaches of its own (upscale/jit_cache.py), one CUDA graph per
 signature on the card, and only the exchanges above, the halo refresh,
 the uploads and the gathers run eagerly between the replays
-(_BandCaches).  On the CPU the caches run eagerly.
+(_BandCaches).  On the CPU the caches run eagerly.  The sharded train
+step is compiled too, as the JAX one is jitted: the whole step in one
+CUDA graph on a mesh of one device, per-band segment graphs across cards
+(make_sharded_train_step).
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 from fractions import Fraction
 from math import ceil, gcd
 from typing import Any, Callable
@@ -52,7 +56,7 @@ import torch
 from ..models import bsvd, egvsr, rrdbnet, srvgg
 from ..ops import space_to_depth
 from ..ops.warp import backward_warp_columns
-from ..upscale.jit_cache import GraphPool, ShapeCache
+from ..upscale.jit_cache import MAX_GRAPHS, GraphPool, ShapeCache, _flatten, _leaf_sig
 from ..upscale.steps import (
     UpscaleSpec,
     _denoise_finish,
@@ -70,6 +74,7 @@ from ..upscale.steps import (
 from ._bands import (
     Band,
     ShardedState,
+    _leaves,
     alignment,
     band_slice,
     cols,
@@ -82,6 +87,7 @@ from ._bands import (
     shard_state,
     shared_stats,
     split_width,
+    tree_map,
 )
 from .mesh import AXES, Mesh, NamedSharding, P
 
@@ -689,15 +695,15 @@ def make_sharded_train_step(train_step: Callable, mesh: Mesh) -> Callable:
 
     The step reads the loss function and the schedule that train_step
     exposes (`train_step.loss_fn`, whose `cfg` is the VSRTrainConfig, and
-    `train_step.schedule`); a step without them (the GAN step) raises a
-    TypeError.  N must divide by the data axis.
+    `train_step.schedule`; a train.compiled.TrainStepCache passes them
+    through from the step it wraps); a step without them (the GAN step)
+    raises a TypeError.  N must divide by the data axis.
 
     Each call copies the parameters to every other device of the mesh
     through autograd (`Tensor.to`), so they are fresh at every call and
     each device's part of the gradient flows back into the one set of
-    parameters on the first device, where autograd sums them;
-    vsr.apply_gradients then makes one optimizer step there.  No
-    torch.distributed and no NCCL.
+    parameters on the first device, where autograd sums them; one
+    optimizer step follows there.  No torch.distributed and no NCCL.
 
     The width is split into bands (parallel/_bands.py) with a halo of
     egvsr_radius(cfg) LR columns, rounded up to FNet's alignment of 8.
@@ -715,6 +721,30 @@ def make_sharded_train_step(train_step: Callable, mesh: Mesh) -> Callable:
     step's, up to rounding, as long as the halo covers the step's
     radius.
 
+    The step is split as the recipes' steps are (train/compiled.py): a
+    host prologue (the checks, the rate sched(state.step) filled into
+    the optimizer, the batch put on the first device), a device body
+    (the bands' losses, backward and the optimizer update) and the
+    update count.  `fn.split` holds the three parts and `fn.eager` the
+    step that runs them eagerly.  The result is compiled per input
+    signature, as the JAX function returns a jitted step, by a rule on
+    the mesh's devices (`mesh.device_list`):
+    - one distinct device (a mesh that repeats one card, or the CPU):
+      the whole body is one device's work, and fn is a
+      train.compiled.TrainStepCache of the eager step: on the card one
+      CUDA graph a signature holds the forward over every band and
+      frame, the backward and the capturable Adam;
+    - several distinct devices: a CUDA graph lies on one device, and
+      each device's backward runs on its own autograd thread, so fn is a
+      _SegmentGraphs: each band's device-local work is graphed in
+      segments (forward and backward graphs, make_graphed_callables),
+      while the exchanges between bands (the previous HR frame's gather
+      and its copy to each device, the loss parts' copies to the first
+      device and their sums, the replicas' copies) and the optimizer
+      update run eagerly between them.
+    On CPU tensors both run the body eagerly.  A capture or replay that
+    fails raises; nothing turns the graphs off.
+
     What the spatial axis buys: configs/egvsr_bd.yml's FRNet (nf 64,
     nb 10) has a radius of 65 + 1 + 20 + 2 + 1 = 89 LR columns (a halo
     of 96), wider than its crop's 32 LR columns (GT crop 128), so at
@@ -723,8 +753,9 @@ def make_sharded_train_step(train_step: Callable, mesh: Mesh) -> Callable:
     wider than about twice the radius (some 180 LR columns); below that
     the data axis is the one that splits the work."""
     # imported here, so that the serving steps do not load the training tree
+    from ..train.compiled import SplitStep, TrainStepCache, eager_step
     from ..train.losses import criterion_parts
-    from ..train.vsr import apply_gradients, param_leaves
+    from ..train.vsr import count_update, optimizer_update, param_leaves, set_rate
 
     missing = [a for a in ("loss_fn", "schedule") if not hasattr(train_step, a)]
     if missing:
@@ -741,22 +772,27 @@ def make_sharded_train_step(train_step: Callable, mesh: Mesh) -> Callable:
     devices = mesh.device_list
     dev0 = devices[0]
     halo = egvsr_radius(cfg.model_cfg)
+    schedule = train_step.schedule
 
-    def fn(state, lr_data, gt_data):
-        n, t, h, w, c = lr_data.shape
-        if n % len(rows):
-            raise ValueError(f"batch {n} does not divide by the mesh's data axis ({len(rows)})")
+    def prologue(state, lr_data, gt_data):
+        if lr_data.shape[0] % len(rows):
+            raise ValueError(f"batch {lr_data.shape[0]} does not divide by the mesh's data axis ({len(rows)})")
         for p in param_leaves(state.params):
             if p.device != dev0:
                 raise ValueError(f"the train state's parameters must lie on the mesh's first device {dev0}, "
                                  f"not {p.device}")
+        set_rate(state.opt, schedule(state.step))
+        return put(lr_data, dev0), put(gt_data, dev0)
+
+    def body(state, lr_data, gt_data, run: Callable = _run_eagerly):
+        n, t, h, w, c = lr_data.shape
         reps = replicate(state.params, devices)
         nb = n // len(rows)
         sums = [0.0, 0.0]
         for r, row in enumerate(rows):
             bands = split_width(w, row, _FNET_ALIGN, halo)
-            parts = _band_train_losses(reps, bands, lr_data[r * nb : (r + 1) * nb],
-                                       gt_data[r * nb : (r + 1) * nb], cfg.model_cfg, pix[0], warp[0], dev0)
+            parts = _band_train_losses(reps, bands, lr_data[r * nb : (r + 1) * nb], gt_data[r * nb : (r + 1) * nb],
+                                       cfg.model_cfg, pix[0], warp[0], dev0, run, r)
             sums = [a + b for a, b in zip(sums, parts)]
         s = cfg.model_cfg.scale
         counts = (n * t * h * s * w * s * c, n * (t - 1) * h * w * c)
@@ -765,55 +801,282 @@ def make_sharded_train_step(train_step: Callable, mesh: Mesh) -> Callable:
             for weight, total, count, mean in zip((cfg.pixel_weight, cfg.warping_weight), sums, counts,
                                                   (pix[1], warp[1])))
         loss = loss_pix + loss_warp
-        apply_gradients(state, loss, train_step.schedule)
+        optimizer_update(state.opt, loss)
         logs = {"l_pix_G": loss_pix, "l_warp_G": loss_warp, "l_total": loss}
-        return state, {k: v.detach() for k, v in logs.items()}
+        return {k: v.detach() for k, v in logs.items()}
 
-    return fn
+    step = eager_step(SplitStep(prologue, body, count_update))
+    step.loss_fn, step.schedule = train_step.loss_fn, schedule
+    if len(set(devices)) == 1:
+        return TrainStepCache(step)
+    return _SegmentGraphs(step)
+
+
+def _run_eagerly(key, fn: Callable, *args):
+    """A band's segment run as it is (the eager body's `run`)."""
+    return fn(*args)
 
 
 def _band_train_losses(reps: dict, bands: list[Band], lr_data, gt_data, cfg: egvsr.EGVSRConfig, pix_part,
-                       warp_part, dev0: torch.device) -> list:
+                       warp_part, dev0: torch.device, run: Callable, row: int) -> list:
     """egvsr.forward_sequence and the VSR loss on the bands of one data
-    shard: the pixel and warp criteria summed over the bands' centres,
-    each on dev0.  It mirrors train.vsr.make_loss_fn, band by band."""
+    shard (data row `row`): the pixel and warp criteria summed over the
+    bands' centres, each on dev0.  It mirrors train.vsr.make_loss_fn, band
+    by band.
+
+    Each band's device-local work is a chain of segments, each called as
+    run((row, k, name), fn, *tensor args) for band position k: "front"
+    (the LR flow, the HR flow a frame, the warp loss part on the LR
+    centre), ("frame", i) for each frame i (the HR warp of the gathered
+    previous frame and SRNet; frame 0 with a zero warp) and "pix" (the
+    pixel loss part on the HR centre).  The copies between devices and
+    the HR gather run between them."""
     n, t, h, w, c = lr_data.shape
     s = cfg.scale
     xs, hr_flows, sums = [], [], [0.0, 0.0]
     lr_prev_whole = lr_data[:, :-1].reshape(n * (t - 1), h, w, c)
     lr_curr_whole = lr_data[:, 1:].reshape(n * (t - 1), h, w, c)
-    for band in bands:
-        p, bw = reps[band.device], band.hi - band.lo
-        centre = slice(band.c0 - band.lo, band.c1 - band.lo)
+    for k, band in enumerate(bands):
         with on_device(band.device):
             x = put(lr_data[:, :, :, band.lo : band.hi], band.device)
-            lr_prev = x[:, :-1].reshape(n * (t - 1), h, bw, c)
-            lr_curr = x[:, 1:].reshape(n * (t - 1), h, bw, c)
-            lr_flow = egvsr._lr_flow(p, lr_curr, lr_prev)
-            hr_flows.append(egvsr._upsample_flow(lr_flow, h, bw, cfg).reshape(n, t - 1, h * s, bw * s, 2))
-            # the warp loss on the band's LR centre, the previous LR frame
-            # read whole
-            lr_warp = backward_warp_columns(put(lr_prev_whole, band.device), lr_flow, band.lo)
             y = put(lr_curr_whole[:, :, band.c0 : band.c1], band.device)
-            sums[1] = sums[1] + put(warp_part(lr_warp[:, :, centre], y), dev0)
+            flows, part = run((row, k, "front"), _front_segment(band, cfg, warp_part),
+                              {"fnet": reps[band.device]["fnet"]}, x, put(lr_prev_whole, band.device), y)
+            hr_flows.append(flows)
+            sums[1] = sums[1] + put(part, dev0)
         xs.append(x)
     hrs = []
-    for band, x in zip(bands, xs):
+    for k, (band, x) in enumerate(zip(bands, xs)):
         with on_device(band.device):
-            zero = x.new_zeros((n, h, band.hi - band.lo, s * s * c))
-            hrs.append([egvsr.srnet_apply(reps[band.device]["srnet"], x[:, 0], zero)])
+            hrs.append([run((row, k, ("frame", 0)), _first_frame_segment(s), reps[band.device]["srnet"], x[:, 0])])
     for i in range(1, t):
         hr_prev = gather_bands([hr[-1] for hr in hrs], bands, w, s * w, 2, dev0)
         whole = {}
-        for band, x, hr, flow in zip(bands, xs, hrs, hr_flows):
+        for k, (band, x, hr, flows) in enumerate(zip(bands, xs, hrs, hr_flows)):
             if band.device not in whole:
                 whole[band.device] = put(hr_prev, band.device)
             with on_device(band.device):
-                warped = backward_warp_columns(whole[band.device], flow[:, i - 1], s * band.lo)
-                hr.append(egvsr.srnet_apply(reps[band.device]["srnet"], x[:, i], space_to_depth(warped, s)))
-    for band, hr in zip(bands, hrs):
-        centre = slice(s * (band.c0 - band.lo), s * (band.c1 - band.lo))
+                hr.append(run((row, k, ("frame", i)), _frame_segment(s * band.lo, s), reps[band.device]["srnet"],
+                              x[:, i], whole[band.device], flows[i - 1]))
+    for k, (band, hr) in enumerate(zip(bands, hrs)):
         with on_device(band.device):
             gt = put(gt_data[:, :, :, s * band.c0 : s * band.c1], band.device)
-            sums[0] = sums[0] + put(pix_part(torch.stack(hr, dim=1)[:, :, :, centre], gt), dev0)
+            sums[0] = sums[0] + put(run((row, k, "pix"), _pix_segment(band, s, pix_part), gt, *hr), dev0)
     return sums
+
+
+def _front_segment(band: Band, cfg: egvsr.EGVSRConfig, warp_part) -> Callable:
+    """front(p, x, lr_prev_whole, y) -> (HR flows, one a frame pair; the
+    warp loss part on the band's LR centre): FNet on the band's columns
+    x (n, t, h, bw, c), the warp of the whole previous LR frames
+    lr_prev_whole against the band's LR flow, y the LR centre's targets."""
+    centre = slice(band.c0 - band.lo, band.c1 - band.lo)
+
+    def front(p, x, lr_prev_whole, y):
+        n, t, h, bw, c = x.shape
+        s = cfg.scale
+        lr_prev = x[:, :-1].reshape(n * (t - 1), h, bw, c)
+        lr_curr = x[:, 1:].reshape(n * (t - 1), h, bw, c)
+        lr_flow = egvsr._lr_flow(p, lr_curr, lr_prev)
+        hr_flow = egvsr._upsample_flow(lr_flow, h, bw, cfg).reshape(n, t - 1, h * s, bw * s, 2)
+        # the warp loss on the band's LR centre, the previous LR frame read
+        # whole
+        lr_warp = backward_warp_columns(lr_prev_whole, lr_flow, band.lo)
+        return hr_flow.unbind(1), warp_part(lr_warp[:, :, centre], y)
+
+    return front
+
+
+def _first_frame_segment(s: int) -> Callable:
+    """SRNet on the band's first frame, with a zero warped frame."""
+
+    def first_frame(p, x):
+        n, h, bw, c = x.shape
+        return egvsr.srnet_apply(p, x, x.new_zeros((n, h, bw, s * s * c)))
+
+    return first_frame
+
+
+def _frame_segment(col0: int, s: int) -> Callable:
+    """SRNet on one frame of the band, after the warp of the whole
+    previous HR frame along the band's HR flow (HR column col0 on)."""
+
+    def frame(p, x, whole, flow):
+        return egvsr.srnet_apply(p, x, space_to_depth(backward_warp_columns(whole, flow, col0), s))
+
+    return frame
+
+
+def _pix_segment(band: Band, s: int, pix_part) -> Callable:
+    """The pixel loss part of the band's HR centre over its frames."""
+    centre = slice(s * (band.c0 - band.lo), s * (band.c1 - band.lo))
+
+    def pix(gt, *hrs):
+        return pix_part(torch.stack(hrs, dim=1)[:, :, :, centre], gt)
+
+    return pix
+
+
+class _Zeros:
+    """A recorded segment argument: zeros of its shape, dtype and device,
+    requiring grad where it did."""
+
+    def __init__(self, shape, dtype, device, requires_grad: bool):
+        self.shape, self.dtype, self.device, self.requires_grad = shape, dtype, device, requires_grad
+
+    def make(self) -> torch.Tensor:
+        return torch.zeros(self.shape, dtype=self.dtype, device=self.device).requires_grad_(self.requires_grad)
+
+
+def _on_card(tensors: list) -> bool:
+    return any(isinstance(x, torch.Tensor) and x.device.type == "cuda" for x in tensors)
+
+
+class _SegmentGraphs:
+    """make_sharded_train_step's compiled step on a mesh of several
+    distinct devices: `fn(state, lr_data, gt_data) -> (state, logs)` as
+    the eager step it wraps (`fn.eager`, with its parts as `fn.split`).
+
+    Every call runs the prologue, the body and the epilogue.  The body's
+    signature is TrainStepCache's: the body's inputs' shapes, dtypes and
+    devices, and where each tensor of the state lies.  On CPU tensors the
+    body runs eagerly.  On the card:
+    - the first call of a signature runs the body eagerly and records
+      every segment's arguments (their shapes, dtypes and devices; a
+      parameter of the state is kept as itself, so that its graph reads
+      it where it lies);
+    - the second graphs the segments of each (data row, band) with
+      torch.cuda.make_graphed_callables, in the order the body runs
+      them, on zeros of those arguments, then runs the body through
+      them;
+    - every later call runs the body through them: a segment's forward
+      copies its arguments into its static inputs and replays its
+      forward graph, and autograd's backward replays its backward graph.
+    The band's position and data row key its segments, as _BandCaches'
+    tags do: two bands of equal width on one device keep their own
+    graphs.  make_graphed_callables lets graphs share a pool only where
+    their backward graphs replay in the reverse of their forward order: a
+    later graph may reuse what an earlier one freed.  Within one (row,
+    band) the frames and "pix" replay so (frame i's backward waits for
+    frame i + 1's, whose input is frame i's gathered output), and share
+    a pool; "front" has a pool of its own, because its backward and
+    frame 0's both wait for frame 1's only, and across cards their order
+    follows which card's gradient arrives first (frame 0's comes through
+    the gather from every card).  Other bands' and rows' segments have
+    pools of their own.  The first MAX_GRAPHS signatures that recur are
+    captured; any other runs eagerly.  The optimizer update runs eagerly
+    on the first device (capturable Adam, a few foreach kernels)."""
+
+    def __init__(self, step: Callable):
+        self.eager = step
+        self.split = step.split
+        self.loss_fn, self.schedule = step.loss_fn, step.schedule
+        self._seen: set = set()
+        self._samples: dict = {}
+        self._graphs: dict = {}
+        self._streams: dict = {}
+
+    def __del__(self):
+        # make_graphed_callables' callables live in reference cycles (a
+        # class each): free their graphs now, when the step is dropped,
+        # not when the cycle collector next runs, which may be in the
+        # middle of another capture, which a graph freed under it ends
+        if self._graphs:
+            self._graphs.clear()
+            gc.collect()
+
+    def __call__(self, state, *batch):
+        from ..train.compiled import _state_sig, state_tensors
+
+        inputs = self.split.prologue(state, *batch)
+        leaves: list = []
+        struct = _flatten(inputs, leaves)
+        fixed = state_tensors(state)
+        sig = (struct, tuple(_leaf_sig(x) for x in leaves))
+        run = _run_eagerly
+        if _on_card(leaves + fixed):
+            sig += (_state_sig(state, fixed),)
+            if sig in self._graphs:
+                run = self._replay(self._graphs[sig])
+            elif len(self._graphs) < MAX_GRAPHS:
+                if sig in self._samples:
+                    self._graphs[sig] = self._capture(self._samples.pop(sig))
+                    run = self._replay(self._graphs[sig])
+                else:
+                    run = self._record(self._samples.setdefault(sig, {}), state)
+        self._seen.add(sig)
+        logs = self.split.body(state, *inputs, run=run)
+        self.split.epilogue(state)
+        return state, logs
+
+    @property
+    def num_signatures(self) -> int:
+        return len(self._seen)
+
+    @property
+    def num_graphs(self) -> int:
+        """CUDA graphs held: a forward and a backward graph a segment."""
+        return sum(2 * len(g) for g in self._graphs.values())
+
+    @staticmethod
+    def _record(samples: dict, state) -> Callable:
+        """`run` for a signature's first call: each segment runs eagerly,
+        and what its graphs' static inputs will be is kept: a parameter of
+        the state itself, any other argument as its shape, dtype, device
+        and requires_grad (the capture's sample is zeros of those: its
+        values are written at every replay)."""
+        from ..train.vsr import param_leaves
+
+        own = {id(p) for p in param_leaves(state.params)}
+
+        def sample(x):
+            if not isinstance(x, torch.Tensor):
+                raise TypeError(f"a segment's arguments are tensors, not {type(x).__name__}")
+            if id(x) in own:
+                return x.detach().requires_grad_(True)
+            return _Zeros(x.shape, x.dtype, x.device, x.requires_grad)
+
+        def record(key, fn, *args):
+            samples[key] = (fn, tree_map(sample, args))
+            return fn(*args)
+
+        return record
+
+    def _capture(self, samples: dict) -> dict:
+        groups: dict = {}
+        for key, (fn, args) in samples.items():
+            args = tree_map(lambda x: x.make() if isinstance(x, _Zeros) else x, args)
+            groups.setdefault(key[:2] + (key[2] == "front",), []).append((key, fn, args))
+        graphed = {}
+        for members in groups.values():
+            dev = next(x.device for x in _leaves(members[0][2]))
+            with on_device(dev), self._capture_stream(dev):
+                fns = torch.cuda.make_graphed_callables(tuple(fn for _, fn, _ in members),
+                                                        tuple(args for _, _, args in members))
+            graphed.update((key, g) for (key, _, _), g in zip(members, fns))
+        return graphed
+
+    @contextlib.contextmanager
+    def _capture_stream(self, dev: torch.device):
+        """make_graphed_callables captures on torch.cuda.graph's default
+        capture stream, which is made once, on the device current at its
+        first use: a capture on another card would run on a stream of the
+        wrong device.  For the block it is a stream of `dev`."""
+        if dev.type != "cuda":
+            yield
+            return
+        if dev not in self._streams:
+            self._streams[dev] = torch.cuda.Stream(dev)
+        prior = torch.cuda.graph.default_capture_stream
+        torch.cuda.graph.default_capture_stream = self._streams[dev]
+        try:
+            yield
+        finally:
+            torch.cuda.graph.default_capture_stream = prior
+
+    @staticmethod
+    def _replay(graphed: dict) -> Callable:
+        def run(key, fn, *args):
+            return graphed[key](*args)
+
+        return run

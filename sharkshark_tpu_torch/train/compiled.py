@@ -152,12 +152,18 @@ class TrainStepCache:
     A graph keeps the gradients it wrote and sets them as the leaves'
     `.grad` after each replay, as the eager step leaves its own.  The
     kernel wrappers' launch counters stay exact (a replay adds what its
-    capture counted).  `eager` is the step it wraps; the driver runs
-    TrainStepCache(step) where the JAX driver runs jax.jit(step)."""
+    capture counted).  `eager` is the step it wraps and `split` its
+    three parts; the driver runs TrainStepCache(step) where the JAX
+    driver runs jax.jit(step).  A step's `loss_fn` and `schedule`, where
+    it has them (train.vsr.make_train_step), pass through, as a jitted
+    function is transparent to parallel.make_sharded_train_step."""
 
     def __init__(self, step: Callable):
         self.eager = step
         self._split: SplitStep = step.split
+        for name in ("loss_fn", "schedule"):
+            if hasattr(step, name):
+                setattr(self, name, getattr(step, name))
         self._pool = GraphPool()
         self._seen: set = set()
         self._warmed: set = set()
@@ -168,6 +174,10 @@ class TrainStepCache:
         logs = self._body(state, inputs)
         self._split.epilogue(state)
         return state, logs
+
+    @property
+    def split(self) -> SplitStep:
+        return self._split
 
     @property
     def num_signatures(self) -> int:

@@ -136,8 +136,8 @@ def new_train_state(params: dict, device, lr: float, beta1: float, beta2: float,
 
 def apply_gradients(state: TrainState, loss: torch.Tensor, sched: Callable[[int], float]) -> None:
     """Back-propagate `loss`, then one optimizer update at the rate
-    sched(state.step), in place: a whole step's three parts in one call
-    (parallel.make_sharded_train_step's update, run eagerly)."""
+    sched(state.step), in place: a whole step's three parts in one call,
+    run eagerly."""
     set_rate(state.opt, sched(state.step))
     optimizer_update(state.opt, loss)
     state.step += 1
