@@ -147,12 +147,15 @@ Phases (any failure exits non-zero, and nothing is caught):
      and 32 K4 launches a chunk on each band, by device too, ms/frame and
      peak memory per device), the SR-only service on a 2x2 mesh against
      one device, the EGVSR service on a 1x4 mesh against phase 6's
-     single-device run (no K3 launch: the sharded step warps by the plain
-     gather), the CLI with --mesh 1,S (S the cards present, up to 4; 1,1
-     on one card, still through the sharded factories) with its exact
-     bytes, and, with two or more cards, K1 and K4 against their plain
-     versions on each card; K1 and K4 at the bands' shapes beside their
-     plain versions, their bounds and the cuDNN calls.  Each mesh service
+     single-device run (one K3 launch a band and frame: each band warps
+     its columns of the whole previous HR frame), the CLI with --mesh 1,S
+     (S the cards present, up to 4; 1,1 on one card, still through the
+     sharded factories) with its exact bytes, and, with two or more
+     cards, K1 and K4 against their plain versions on each card; K1 and
+     K4 at the bands' shapes beside their plain versions, their bounds
+     and the cuDNN calls, and K3 at the EGVSR bands (a column origin into
+     the 2880x5120 frame) beside the plain gather, F.grid_sample and its
+     bound, and bit for bit against the whole frame's warp.  Each mesh service
      runs twice over its frames, through its bands' CUDA graphs and
      through the factories' eager reference
      (parallel.sharded._eager_reference), held identical bit for bit,
@@ -2742,6 +2745,49 @@ def kernel_shapes(tsm, cs):
         tsm.tsm_conv, cs.fused_conv_stack = k1, k4
 
 
+@contextlib.contextmanager
+def warp_bands():
+    """The (x's shape, col0, W') of K3's calls on a card from the sharded
+    EGVSR step while the block runs (parallel/sharded.py calls K3's
+    wrapper by that name; a graph's replay calls no wrapper, its eager
+    call and its capture do)."""
+    from sharkshark_tpu_torch.parallel import sharded
+
+    fast = sharded.backward_warp_fast
+    seen = set()
+
+    def rec(x, flow, **kw):
+        if x.device.type == "cuda":
+            seen.add((tuple(x.shape), kw.get("col0", 0), flow.shape[2]))
+        return fast(x, flow, **kw)
+
+    sharded.backward_warp_fast = rec
+    try:
+        yield seen
+    finally:
+        sharded.backward_warp_fast = fast
+
+
+def check_warp_bands(bench_warp, seen: set, card: str) -> list[dict]:
+    """K3 at the bands that phase 15's sharded EGVSR step gave it, which
+    must be bench_backward_warp.BANDS of the 2880x5120 frame: against its
+    plain version, bit for bit against the whole frame's kernel output at
+    its columns, and timed beside the plain gather, F.grid_sample on the
+    band and the band's bound (bench_backward_warp.measure_bands)."""
+    bands = sorted((col0, wo) for _, col0, wo in seen)
+    assert {shape for shape, _, _ in seen} == {bench_warp.SHAPE} and tuple(bands) == bench_warp.BANDS, \
+        f"the sharded EGVSR step gave K3 {sorted(seen)}, expected the bands {bench_warp.BANDS} of {bench_warp.SHAPE}"
+    rows = bench_warp.measure_bands(bands=bands)
+    for row in rows:
+        log(f"backward_warp {row['case']} of {tuple(row['frame'])} bf16: max|err| {row['max_abs_err']:.4g} (atol "
+            f"{bench_warp.TOL}), identical to the whole frame's warp at its columns; kernel {row['kernel_ms']:.4f} ms "
+            f"a call, {row['device_ms']:.4f} ms back to back; plain gather {row['plain_ms']:.4f} ms; F.grid_sample "
+            f"{row['library_ms']:.4f} ms a call, {row['library_device_ms']:.4f} ms back to back; bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}, {row['bytes'] / 1e6:.1f} MB), "
+            f"{100 * row['bound_share']:.1f}% of it back to back on {card}")
+    return rows
+
+
 def check_band_shapes(bench, bench_cs, shapes: dict, card: str) -> dict:
     """K1 and K4 against their plain versions (and timed) at every shape
     phase 15's denoise and SR-only services gave them: the bands' widths,
@@ -3061,8 +3107,9 @@ def run_mesh_egvsr(service_mod, counters, card: str, one_device: dict, one_out: 
     """The EGVSR service (minted FRNet) on a 1x4 mesh over phase 6's 24
     frames, through its bands' graphs and their eager reference, against
     phase 6's single-device run: the graphs identical to the eager
-    reference, PSNR >= 40 dB, and no K3 launch (the sharded step warps by
-    the plain gather)."""
+    reference, PSNR >= 40 dB (51.571 dB with the plain gather), and one K3 launch a
+    band and frame (each band warps its columns of the whole previous HR
+    frame), replays included."""
     from sharkshark_tpu_torch.parallel import make_mesh
 
     devices = mesh_devices(4)
@@ -3084,13 +3131,18 @@ def run_mesh_egvsr(service_mod, counters, card: str, one_device: dict, one_out: 
         stamps = r.pop("stamps")
         r["ms_per_frame"] = (stamps[jobs - 1] - stamps[0]) / ((jobs - 1) * batch) * 1e3
     res["dispatch_ms_per_frame"] = graph_res["timing"]["dispatch_ms_per_frame_replay"]
-    assert res["launches"] == {"tsm_conv": 0, "tsm_conv_pair": 0, "backward_warp": 0, "fused_conv_stack": 0}, \
-        f"the sharded EGVSR path launched {res['launches']}"
+    want = {"tsm_conv": 0, "tsm_conv_pair": 0, "backward_warp": len(devices) * jobs * batch, "fused_conv_stack": 0}
+    assert res["launches"] == want, f"the sharded EGVSR path launched {res['launches']}, expected {want}"
     value = psnr(out, one_out)
-    log(f"EGVSR service, mesh 1x4 against one device (K3): PSNR {value:.3f} dB (min 40); backward_warp "
-        f"launches {res['launches']['backward_warp']}; delivered {res['ms_per_frame']:.3f} ms/frame through the "
-        f"graphs (the host's dispatch {res['dispatch_ms_per_frame']:.3f}), {graph_res['eager']['ms_per_frame']:.3f} "
-        f"eager, {one_device['ms_per_frame']:.3f} one device on {card}")
+    log(f"EGVSR service, mesh 1x4 against one device: PSNR {value:.3f} dB (min 40; 51.571 with the plain "
+        f"gather); backward_warp launches {res['launches']['backward_warp']} ({len(devices)} bands x "
+        f"{jobs * batch} frames); delivered "
+        f"{res['ms_per_frame']:.3f} ms/frame through the graphs (the host's dispatch "
+        f"{res['dispatch_ms_per_frame']:.3f}), {graph_res['eager']['ms_per_frame']:.3f} eager, "
+        f"{one_device['ms_per_frame']:.3f} one device; the step back to back "
+        f"{graph_res['timing']['device_ms_per_frame_replay']:.3f} ms/frame through the graphs, "
+        f"{graph_res['timing']['device_ms_per_frame_eager']:.3f} eager (with the plain gather: 10.636 "
+        f"delivered on four cards) on {card}")
     assert value >= 40.0, "the sharded EGVSR service disagrees with the single-device one"
     return {"mesh": res, "mesh_eager": graph_res["eager"], "timing": graph_res["timing"], "psnr_db": value,
             "one_device_ms_per_frame": one_device["ms_per_frame"]}
@@ -3126,10 +3178,10 @@ def check_kernels_on_every_card(tsm, cs, card: str) -> list[dict]:
     return rows
 
 
-def run_mesh_phase(service_mod, counters, tsm, cs, bench, bench_cs, card: str, defaults: dict, egvsr_res: dict,
-                   egvsr_out: np.ndarray) -> dict:
+def run_mesh_phase(service_mod, counters, tsm, cs, bench, bench_cs, bench_warp, card: str, defaults: dict,
+                   egvsr_res: dict, egvsr_out: np.ndarray) -> dict:
     """Phase 15: the sharded serving paths at full width, on the cards
-    (two or more) or on cuda:0 repeated, K1 and K4 against their plain
+    (two or more) or on cuda:0 repeated, K1, K4 and K3 against their plain
     versions at the bands' shapes, and the CLI with --mesh."""
     t_phase = time.perf_counter()
     count = torch.cuda.device_count()
@@ -3144,7 +3196,9 @@ def run_mesh_phase(service_mod, counters, tsm, cs, bench, bench_cs, card: str, d
         res = {"cards": count, "denoise": run_mesh_denoise(service_mod, counters, card),
                "sr_only": run_mesh_sr(service_mod, counters, card)}
     res["band_kernels"] = check_band_shapes(bench, bench_cs, shapes, card)
-    res["egvsr"] = run_mesh_egvsr(service_mod, counters, card, egvsr_res, egvsr_out)
+    with warp_bands() as seen:
+        res["egvsr"] = run_mesh_egvsr(service_mod, counters, card, egvsr_res, egvsr_out)
+    res["band_kernels"]["backward_warp"] = check_warp_bands(bench_warp, seen, card)
     spatial = min(count, 4) if count >= 2 else 1
     n = 24
     want = {k: v * spatial for k, v in denoise_launches(4, n // 4 - 4, 4, **defaults).items()}
@@ -4117,8 +4171,8 @@ def main() -> int:
 
     if "--mesh-only" in sys.argv[1:]:
         egvsr_res, egvsr_out = run_egvsr_path(service_mod, counters, card)
-        mesh_res = run_mesh_phase(service_mod, counters, tsm, cs, bench, bench_cs, card, defaults, egvsr_res,
-                                  egvsr_out)
+        mesh_res = run_mesh_phase(service_mod, counters, tsm, cs, bench, bench_cs, bench_warp, card, defaults,
+                                  egvsr_res, egvsr_out)
         log(f"phase 15 took {mesh_res['wall_s']:.1f} s")
         t_phase = time.perf_counter()
         train_rows = run_sharded_train(card)
@@ -4210,8 +4264,8 @@ def main() -> int:
     assert_graphs_freed()
     # 15. the sharded serving paths (parallel/): the denoise, SR-only and
     # EGVSR services on meshes, the CLI with --mesh, K1 and K4 on each card
-    mesh_res = run_mesh_phase(service_mod, counters, tsm, cs, bench, bench_cs, card, defaults, egvsr_res,
-                                  egvsr_out)
+    mesh_res = run_mesh_phase(service_mod, counters, tsm, cs, bench, bench_cs, bench_warp, card, defaults,
+                              egvsr_res, egvsr_out)
     log(f"phase 15 took {mesh_res['wall_s']:.1f} s")
     log(json.dumps({"mesh": mesh_res}))
 
@@ -4267,10 +4321,14 @@ def main() -> int:
     kernels[3]["launches_sharded_denoise"] = mesh_den["launches"]["fused_conv_stack"]
     kernels[3]["launches_sharded_denoise_by_device"] = mesh_den["launches_by_device"]["fused_conv_stack"]
     kernels[3]["launches_sharded_sr"] = mesh_res["sr_only"]["mesh"]["launches"]["fused_conv_stack"]
+    # one K3 launch a band and frame, through the bands' graphs; and K3 at
+    # those bands
     kernels[2]["launches_sharded_egvsr"] = mesh_res["egvsr"]["mesh"]["launches"]["backward_warp"]
+    kernels[2]["band_cases"] = mesh_res["band_kernels"]["backward_warp"]
     kernels[2]["launches_warp_fidelity"] = tools_res["warp_fidelity"]["launches"]["backward_warp"]
     for k in kernels:
         assert k["launches"] > 0, f"{k['name']} was not launched on its path"
+    assert kernels[2]["launches_sharded_egvsr"] > 0, "K3 was not launched on the sharded EGVSR path"
     log(json.dumps({"defaults": defaults, "routes_on": routes_on, "route_timing": route_rows,
                     "main_path": main_res, "routes_on_path": on_res, "k1_layer_by_layer_path": ref_res,
                     "step_psnr_db": step_psnr, "egvsr_path": egvsr_res, "egvsr_chunked_path": chunk_res,

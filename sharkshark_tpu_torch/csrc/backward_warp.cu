@@ -5,18 +5,22 @@
 // (the Pallas TPU kernel).  Same function as the port's plain version,
 // sharkshark_tpu_torch/ops/warp.py::backward_warp_plain.
 //
-// What it computes.  out[n, v, u, :] = x sampled at (u + dx, v + dy),
-// (dx, dy) = flow[n, v, u, :] in pixels, with grid_sample semantics
-// (bilinear, align_corners=True, border clamp): the sample point is
-// clamped to [0, W-1] x [0, H-1], and its four neighbours (the second
-// one clamped too) are lerped in float32.  x is bf16 or float32 with
+// What it computes.  x is (N, H, W, C), the flow and out (N, H, Wo, .):
+// out is the columns [col0, col0 + Wo) of the whole frame's warp.
+// out[n, v, u, :] = x sampled at (col0 + u + dx, v + dy), (dx, dy) =
+// flow[n, v, u, :] in pixels, with grid_sample semantics (bilinear,
+// align_corners=True, border clamp): the sample point is clamped to
+// [0, W-1] x [0, H-1] of the whole frame, and its four neighbours (the
+// second one clamped too) are lerped in float32.  col0 = 0 and Wo = W is
+// the warp of the whole frame; a width-sharded step warps its band of
+// columns out of the gathered previous frame.  x is bf16 or float32 with
 // C = 1..4 channels; the flow is bf16 or float32; out has x's dtype.
 // Options:
-//   s = 2, 4: out is space_to_depth(warp(x), s), (N, H/s, W/s, s*s*C)
+//   s = 2, 4: out is space_to_depth(warp(x), s), (N, H/s, Wo/s, s*s*C)
 //           with channel (dy*s + dx)*C + c;
-//   skip:   a device bool; when set, out is x itself (in out's layout),
-//           copied exactly.  EGVSR's scene-cut test sets it on the device,
-//           so the host never waits for it.
+//   skip:   a device bool; when set, out is x's columns [col0, col0 + Wo)
+//           (in out's layout), copied exactly.  EGVSR's scene-cut test
+//           sets it on the device, so the host never waits for it.
 //
 // Bound on an H100 SXM (3.35 TB/s), at the EGVSR path's shape
 // (1, 2880, 5120, 3), bf16 x and flow: x read once (88.5 MB), the flow
@@ -51,7 +55,8 @@
 //     it, so the kernel and the plain version agree as before.
 //   - Locality: a 1-d grid in raster order, so the blocks in flight cover
 //     a band of consecutive output rows and their source band (±96 rows,
-//     192 x 5120 x 6 B = 5.9 MB) stays in the 50 MB L2.
+//     192 x 5120 x 6 B = 5.9 MB) stays in the 50 MB L2; with an origin,
+//     consecutive rows of out's columns, and their source window.
 //   - The skip: the same path, with x's own values in place of the lerps.
 // What is left is the flow's own spread: a flow whose gradient is ~2 px
 // a pixel sends neighbouring lanes to different rows, and its gathers are
@@ -160,8 +165,9 @@ __device__ __forceinline__ void tap_pair(const TX* p, const TX* xend, bool edge,
     for (int c = 0; c < C; ++c) b[c] = edge ? a[c] : value<TX>(t, C + c);
 }
 
-// Output pixel (n, v, u) into dst (its C values in out's layout): x
-// sampled at (u + f.x, v + f.y), or, with copy, x[n, v, u] itself.
+// The output pixel at row v and frame column u (col0 plus its column in
+// out) into dst (its C values in out's layout): x sampled at (u + f.x,
+// v + f.y), or, with copy, x[n, v, u] itself.
 template <typename TX, int C>
 __device__ __forceinline__ void warp_pixel(const TX* x, const TX* xend, float2 f, bool copy, int64_t plane,
                                            int n, int v, int u, int H, int W, TX* dst)
@@ -207,8 +213,8 @@ __device__ __forceinline__ void advance(int& u, int& v, int& n, int step, int W,
 
 template <typename TX, typename TF, int C, int S>
 __global__ void __launch_bounds__(THREADS)
-backward_warp_kernel(const TX* __restrict__ x, const TF* __restrict__ flow, const bool* __restrict__ skip,
-                     TX* __restrict__ out, int N, int H, int W)
+backward_warp_kernel(const TX* __restrict__ x, const TX* __restrict__ xend, const TF* __restrict__ flow,
+                     const bool* __restrict__ skip, TX* __restrict__ out, int N, int H, int W, int col0, int Wo)
 {
     constexpr int VALS = span_values<TX, C, S>();
     constexpr int CHUNKS = VALS * (int)sizeof(TX) / 16;
@@ -216,12 +222,12 @@ backward_warp_kernel(const TX* __restrict__ x, const TF* __restrict__ flow, cons
     const int lane = threadIdx.x & 31;
     TX* st = stage[threadIdx.x >> 5];
     const int64_t span = (int64_t)blockIdx.x * WARPS + (threadIdx.x >> 5);
-    const int64_t plane = (int64_t)H * W;
-    const int64_t values = N * plane * C;  // of x, and of out
-    const int64_t first = span * VALS;     // the span's first output value
+    const int64_t plane = (int64_t)H * W;    // of x
+    const int64_t oplane = (int64_t)H * Wo;  // of the flow and out
+    const int64_t values = N * oplane * C;   // of out
+    const int64_t first = span * VALS;       // the span's first output value
     if (first >= values) return;
     const bool copy = skip != nullptr && *skip;
-    const TX* xend = x + values;
 
     // Lane l computes the span's pixels l, l + 32, l + 64, ... of each row
     // it covers, so a warp's gathers read neighbouring source pixels; the
@@ -230,26 +236,27 @@ backward_warp_kernel(const TX* __restrict__ x, const TF* __restrict__ flow, cons
     if constexpr (S == 1) {
         constexpr int G = VALS / 32 / C;  // pixels a lane computes
         const int64_t p = first / C + lane;
-        const int n0 = (int)(p / plane);
-        const int64_t r = p - n0 * plane;
-        const int v0 = (int)(r / W), u0 = (int)(r - (int64_t)v0 * W);
+        const int n0 = (int)(p / oplane);
+        const int64_t r = p - n0 * oplane;
+        const int v0 = (int)(r / Wo), u0 = (int)(r - (int64_t)v0 * Wo);
         Pair<TF> f[G];
         if (!copy) {
 #pragma unroll
             for (int i = 0; i < G; ++i)
-                if (p + i * 32 < N * plane) f[i].load(flow + 2 * (p + i * 32));
+                if (p + i * 32 < N * oplane) f[i].load(flow + 2 * (p + i * 32));
         }
         int n = n0, v = v0, u = u0;
 #pragma unroll
         for (int i = 0; i < G; ++i) {
-            if (n < N) warp_pixel<TX, C>(x, xend, f[i].get(), copy, plane, n, v, u, H, W, st + (i * 32 + lane) * C);
-            advance(u, v, n, 32, W, H);
+            if (n < N)
+                warp_pixel<TX, C>(x, xend, f[i].get(), copy, plane, n, v, col0 + u, H, W, st + (i * 32 + lane) * C);
+            advance(u, v, n, 32, Wo, H);
         }
     } else {
         // the span is 16 blocks in raster order; lane l computes column
         // (j * 32 + l) of the span's S-row strip, for each j and row dy
         constexpr int J = S / 2;
-        const int hs = H / S, ws = W / S;
+        const int hs = H / S, ws = Wo / S;
         const int64_t g = first / (S * S * C) + lane / S;
         int n[J], by[J], bx[J];
         n[0] = (int)(g / ((int64_t)hs * ws));
@@ -267,7 +274,8 @@ backward_warp_kernel(const TX* __restrict__ x, const TF* __restrict__ flow, cons
             for (int j = 0; j < J; ++j)
 #pragma unroll
                 for (int dy = 0; dy < S; ++dy)
-                    if (n[j] < N) f[j][dy].load(flow + 2 * (n[j] * plane + (int64_t)(by[j] * S + dy) * W + bx[j] * S + dx));
+                    if (n[j] < N)
+                        f[j][dy].load(flow + 2 * (n[j] * oplane + (int64_t)(by[j] * S + dy) * Wo + bx[j] * S + dx));
         }
 #pragma unroll
         for (int j = 0; j < J; ++j) {
@@ -275,8 +283,8 @@ backward_warp_kernel(const TX* __restrict__ x, const TF* __restrict__ flow, cons
             TX* dst = st + ((j * 32 + lane) / S) * (S * S * C) + dx * C;
 #pragma unroll
             for (int dy = 0; dy < S; ++dy)
-                warp_pixel<TX, C>(x, xend, f[j][dy].get(), copy, plane, n[j], by[j] * S + dy, bx[j] * S + dx, H, W,
-                                  dst + dy * S * C);
+                warp_pixel<TX, C>(x, xend, f[j][dy].get(), copy, plane, n[j], by[j] * S + dy, col0 + bx[j] * S + dx,
+                                  H, W, dst + dy * S * C);
         }
     }
     __syncwarp();
@@ -292,64 +300,72 @@ backward_warp_kernel(const TX* __restrict__ x, const TF* __restrict__ flow, cons
 }
 
 template <typename TX, typename TF, int C>
-cudaError_t launch_c(const void* x, const void* flow, const void* skip, void* out, int N, int H, int W, int s,
-                     cudaStream_t stream)
+cudaError_t launch_c(const void* x, const void* flow, const void* skip, void* out, int N, int H, int W, int col0,
+                     int Wo, int s, cudaStream_t stream)
 {
     auto xp = static_cast<const TX*>(x);
     auto fp = static_cast<const TF*>(flow);
     auto sp = static_cast<const bool*>(skip);
     auto op = static_cast<TX*>(out);
-    const int64_t values = (int64_t)N * H * W * C;
+    const int64_t values = (int64_t)N * H * Wo * C;  // of out
     const int64_t per_block = (int64_t)WARPS * (s == 1   ? span_values<TX, C, 1>()
                                                 : s == 2 ? span_values<TX, C, 2>()
                                                          : span_values<TX, C, 4>());
     const int64_t blocks = (values + per_block - 1) / per_block;
     if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+    decltype(&backward_warp_kernel<TX, TF, C, 1>) kernel;
     switch (s) {
-        case 1: backward_warp_kernel<TX, TF, C, 1><<<(unsigned)blocks, THREADS, 0, stream>>>(xp, fp, sp, op, N, H, W); break;
-        case 2: backward_warp_kernel<TX, TF, C, 2><<<(unsigned)blocks, THREADS, 0, stream>>>(xp, fp, sp, op, N, H, W); break;
-        case 4: backward_warp_kernel<TX, TF, C, 4><<<(unsigned)blocks, THREADS, 0, stream>>>(xp, fp, sp, op, N, H, W); break;
+        case 1: kernel = backward_warp_kernel<TX, TF, C, 1>; break;
+        case 2: kernel = backward_warp_kernel<TX, TF, C, 2>; break;
+        case 4: kernel = backward_warp_kernel<TX, TF, C, 4>; break;
         default: return cudaErrorInvalidValue;
     }
+    // x's end comes as a parameter: derived in the kernel beside out's
+    // count, it made ptxas spill in the s2d kernels, ~8 % slower on an H100
+    kernel<<<(unsigned)blocks, THREADS, 0, stream>>>(xp, xp + (int64_t)N * H * W * C, fp, sp, op, N, H, W, col0, Wo);
     return cudaGetLastError();
 }
 
 template <typename TX, typename TF>
-cudaError_t launch(const void* x, const void* flow, const void* skip, void* out, int N, int H, int W, int C, int s,
-                   cudaStream_t stream)
+cudaError_t launch(const void* x, const void* flow, const void* skip, void* out, int N, int H, int W, int col0, int Wo,
+                   int C, int s, cudaStream_t stream)
 {
     switch (C) {
-        case 1: return launch_c<TX, TF, 1>(x, flow, skip, out, N, H, W, s, stream);
-        case 2: return launch_c<TX, TF, 2>(x, flow, skip, out, N, H, W, s, stream);
-        case 3: return launch_c<TX, TF, 3>(x, flow, skip, out, N, H, W, s, stream);
-        case 4: return launch_c<TX, TF, 4>(x, flow, skip, out, N, H, W, s, stream);
+        case 1: return launch_c<TX, TF, 1>(x, flow, skip, out, N, H, W, col0, Wo, s, stream);
+        case 2: return launch_c<TX, TF, 2>(x, flow, skip, out, N, H, W, col0, Wo, s, stream);
+        case 3: return launch_c<TX, TF, 3>(x, flow, skip, out, N, H, W, col0, Wo, s, stream);
+        case 4: return launch_c<TX, TF, 4>(x, flow, skip, out, N, H, W, col0, Wo, s, stream);
         default: return cudaErrorInvalidValue;
     }
 }
 
 }  // namespace
 
-// C interface for ctypes.  x_dtype and flow_dtype: 0 float32, 1 bf16.
-// skip: a device bool, or null for no skip.  s: 1 for NHWC out, else the
-// space_to_depth factor, 2 or 4 (it must divide H and W).  x, flow and
+// C interface for ctypes.  x is (N, H, W, C), the flow (N, H, Wo, 2);
+// out is the columns [col0, col0 + Wo) of the warp (col0 = 0, Wo = W: the
+// whole frame).  x_dtype and flow_dtype: 0 float32, 1 bf16.  skip: a
+// device bool, or null for no skip.  s: 1 for NHWC out, else the
+// space_to_depth factor, 2 or 4 (it must divide H and Wo).  x, flow and
 // out 16-byte aligned.  Returns the cudaError_t of the launch (0 on
 // success); unsupported arguments return cudaErrorInvalidValue.
 extern "C" int backward_warp(const void* x, const void* flow, const void* skip, void* out,
-                             int N, int H, int W, int C, int s, int x_dtype, int flow_dtype,
+                             int N, int H, int W, int col0, int Wo, int C, int s, int x_dtype, int flow_dtype,
                              void* stream)
 {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (N < 1 || H < 1 || W < 1 || C < 1 || C > 4 || (s != 1 && s != 2 && s != 4) || H % s || W % s)
+    if (N < 1 || H < 1 || W < 1 || C < 1 || C > 4 || (s != 1 && s != 2 && s != 4) || H % s)
+        return (int)cudaErrorInvalidValue;
+    if (col0 < 0 || Wo < 1 || (int64_t)col0 + Wo > W || Wo % s)
         return (int)cudaErrorInvalidValue;
     if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(flow) | reinterpret_cast<uintptr_t>(out)) & 15)
         return (int)cudaErrorInvalidValue;
     if (x_dtype == 1 && flow_dtype == 1)
-        return (int)launch<__nv_bfloat16, __nv_bfloat16>(x, flow, skip, out, N, H, W, C, s, st);
+        return (int)launch<__nv_bfloat16, __nv_bfloat16>(x, flow, skip, out, N, H, W, col0, Wo, C, s, st);
     if (x_dtype == 1 && flow_dtype == 0)
-        return (int)launch<__nv_bfloat16, float>(x, flow, skip, out, N, H, W, C, s, st);
+        return (int)launch<__nv_bfloat16, float>(x, flow, skip, out, N, H, W, col0, Wo, C, s, st);
     if (x_dtype == 0 && flow_dtype == 1)
-        return (int)launch<float, __nv_bfloat16>(x, flow, skip, out, N, H, W, C, s, st);
+        return (int)launch<float, __nv_bfloat16>(x, flow, skip, out, N, H, W, col0, Wo, C, s, st);
     if (x_dtype == 0 && flow_dtype == 0)
-        return (int)launch<float, float>(x, flow, skip, out, N, H, W, C, s, st);
+        return (int)launch<float, float>(x, flow, skip, out, N, H, W, col0, Wo, C, s, st);
     return (int)cudaErrorInvalidValue;
 }

@@ -19,11 +19,13 @@ recurrence (counterpart of the JAX package's ops/warp.py).
   inference-only (no backward; the wrapper raises where autograd would
   need one).  `launches` counts kernel launches.
 
-Two options ride on the warp: `s2d_out=s` returns
-space_to_depth(warp(x), s) (the layout SRNet consumes), and `skip`, a
+Three options ride on the warp: `s2d_out=s` returns
+space_to_depth(warp(x), s) (the layout SRNet consumes); `skip`, a
 one-element bool tensor on x's device, returns x unwarped when it is set
 (EGVSR's scene-cut skip, decided on the device so that no frame waits
-for the host).
+for the host); and `col0`, with a flow narrower than x, returns the
+columns [col0, col0 + W') of the whole frame's warp
+(`backward_warp_columns`: a width-sharded step's band).
 """
 
 from __future__ import annotations
@@ -152,18 +154,36 @@ def backward_warp_ac0(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     return grid_sample_bilinear(x, torch.stack([g1x, g1y], dim=-1))
 
 
+def _band_width(x: torch.Tensor, flow: torch.Tensor, col0: int, s2d_out: int) -> int:
+    """The warp's output width W' (the flow's), once its columns [col0,
+    col0 + W') are checked to lie in x and s2d_out to divide H and W'."""
+    if x.ndim != 4 or flow.ndim != 4:
+        raise ValueError(f"backward_warp: x and flow must be 4-d, got {tuple(x.shape)} and {tuple(flow.shape)}")
+    h, w, wo = x.shape[1], x.shape[2], flow.shape[2]
+    if col0 < 0 or wo < 1 or col0 + wo > w:
+        raise ValueError(f"backward_warp: the columns [{col0}, {col0 + wo}) of the warp must lie in x's {w}")
+    s = s2d_out or 1
+    if s < 1 or h % s or wo % s:
+        raise ValueError(f"backward_warp: s2d_out={s2d_out} must divide H={h} and the flow's W={wo}")
+    return wo
+
+
 def backward_warp_plain(
     x: torch.Tensor,
     flow: torch.Tensor,
     *,
     s2d_out: int = 0,
     skip: torch.Tensor | None = None,
+    col0: int = 0,
 ) -> torch.Tensor:
-    """K3's function in plain PyTorch: backward_warp(x, flow), or x itself
-    where `skip` is set, then space_to_depth by s2d_out (0 = NHWC)."""
-    y = backward_warp(x, flow)
+    """K3's function in plain PyTorch: backward_warp_columns(x, flow,
+    col0) (backward_warp(x, flow) when the flow is as wide as x), or x's
+    columns [col0, col0 + W') where `skip` is set, then space_to_depth by
+    s2d_out (0 = NHWC)."""
+    wo = _band_width(x, flow, col0, s2d_out)
+    y = backward_warp_columns(x, flow, col0)
     if skip is not None:
-        y = torch.where(skip.reshape(()).to(torch.bool), x, y)
+        y = torch.where(skip.reshape(()).to(torch.bool), x.narrow(2, col0, wo), y)
     return space_to_depth(y, s2d_out) if s2d_out else y
 
 
@@ -186,13 +206,13 @@ def _kernel_fn():
         from . import _build
 
         fn = _build.load("backward_warp").backward_warp
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _kernel = fn
     return _kernel
 
 
-def _launch(x, flow, s2d_out, skip):
+def _launch(x, flow, s2d_out, skip, col0):
     global launches
     if x.ndim != 4:
         raise ValueError(f"backward_warp: x must be (N, H, W, C), got {tuple(x.shape)}")
@@ -205,26 +225,25 @@ def _launch(x, flow, s2d_out, skip):
             raise TypeError(f"backward_warp: the CUDA kernel takes {name} in "
                             f"{sorted(map(str, KERNEL_DTYPES))}, got {a.dtype}")
     _check("x", x, (n, h, w, c), dev)
-    _check("flow", flow, (n, h, w, 2), dev)
+    _check("flow", flow, (n, h, flow.shape[2] if flow.ndim == 4 else w, 2), dev)
     # the kernel reads x and the flow by aligned 16-byte vectors
     for name, a in (("x", x), ("flow", flow)):
         if a.data_ptr() % 16:
             raise ValueError(f"backward_warp: {name} must be 16-byte aligned")
+    wo = _band_width(x, flow, col0, s2d_out)
     s = s2d_out or 1
-    if s < 1 or h % s or w % s:
-        raise ValueError(f"backward_warp: s2d_out={s2d_out} must divide H={h} and W={w}")
     if s not in S2D_FACTORS:
         raise ValueError(f"backward_warp: the CUDA kernel takes s2d_out in {(0, *S2D_FACTORS)}, got {s2d_out}")
     if skip is not None:
         if skip.dtype != torch.bool or skip.numel() != 1:
             raise TypeError(f"backward_warp: skip must be one bool, got {skip.dtype} {tuple(skip.shape)}")
         _check("skip", skip, None, dev)
-    out = torch.empty((n, h // s, w // s, s * s * c), dtype=x.dtype, device=dev)
+    out = torch.empty((n, h // s, wo // s, s * s * c), dtype=x.dtype, device=dev)
     fn = _kernel_fn()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(x.data_ptr(), flow.data_ptr(), 0 if skip is None else skip.data_ptr(),
-                 out.data_ptr(), n, h, w, c, s, KERNEL_DTYPES[x.dtype], KERNEL_DTYPES[flow.dtype],
+                 out.data_ptr(), n, h, w, col0, wo, c, s, KERNEL_DTYPES[x.dtype], KERNEL_DTYPES[flow.dtype],
                  stream)
     if err:
         raise RuntimeError(f"backward_warp: CUDA kernel launch failed with cudaError_t {err}")
@@ -232,21 +251,25 @@ def _launch(x, flow, s2d_out, skip):
     return out
 
 
-def _op_cpu(x, flow, skip, s2d_out):
-    return backward_warp_plain(x, flow, s2d_out=s2d_out, skip=skip).contiguous()
+# col0's default is repeated on each implementation: the dispatcher passes
+# a Python kernel only the arguments its caller gave, and a call that
+# leaves col0 out (an exported program drops arguments at their default)
+# gives four
+def _op_cpu(x, flow, skip, s2d_out, col0=0):
+    return backward_warp_plain(x, flow, s2d_out=s2d_out, skip=skip, col0=col0).contiguous()
 
 
-def _op_cuda(x, flow, skip, s2d_out):
-    return _launch(x, flow, s2d_out, skip)
+def _op_cuda(x, flow, skip, s2d_out, col0=0):
+    return _launch(x, flow, s2d_out, skip, col0)
 
 
-def _op_fake(x, flow, skip, s2d_out):
-    n, h, w, c = x.shape
+def _op_fake(x, flow, skip, s2d_out, col0=0):
+    n, h, _, c = x.shape
     s = s2d_out or 1
-    return x.new_empty((n, h // s, w // s, s * s * c))
+    return x.new_empty((n, h // s, flow.shape[2] // s, s * s * c))
 
 
-_op = _library.define("backward_warp(Tensor x, Tensor flow, Tensor? skip, int s2d_out) -> Tensor",
+_op = _library.define("backward_warp(Tensor x, Tensor flow, Tensor? skip, int s2d_out, int col0=0) -> Tensor",
                       cpu=_op_cpu, cuda=_op_cuda, fake=_op_fake)
 
 
@@ -256,15 +279,18 @@ def backward_warp_fast(
     *,
     s2d_out: int = 0,
     skip: torch.Tensor | None = None,
+    col0: int = 0,
 ) -> torch.Tensor:
     """K3: the warp of backward_warp_plain, any flow, any N, H and W.
+    x is (N, H, W, C), the flow (N, H, W', 2): out is the columns [col0,
+    col0 + W') of the whole frame's warp (0 <= col0, col0 + W' <= W).
     Through the operator: a CPU tensor runs the plain version; a CUDA
     tensor launches the kernel (x and flow float32 or bf16, contiguous
-    and 16-byte aligned, 1 to 4 channels, s2d_out 0, 1, 2 or 4) or
-    raises.  Inference-only: raises if x or flow requires grad.
-    The kernel samples at u + dx directly, in float32, and returns x's
-    dtype."""
+    and 16-byte aligned, 1 to 4 channels, s2d_out 0, 1, 2 or 4 dividing
+    H and W') or raises.  Inference-only: raises if x or flow requires
+    grad.  The kernel samples at col0 + u + dx directly, in float32, and
+    returns x's dtype."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"backward_warp: no kernel for device {x.device}")
     _library.refuse_grad("backward_warp_fast", x, flow)
-    return _op(x, flow, skip, s2d_out)
+    return _op(x, flow, skip, s2d_out, col0)

@@ -23,8 +23,8 @@ Only three things cross bands besides the halos:
   reductions on the mesh's first device);
 - EGVSR's previous HR frame, which a flow may read anywhere: each step
   gathers it whole to every device and warps the band's columns from it
-  with the plain gather warp in the frame's coordinates (the JAX factory
-  also warps with the gather; K3 stays a single-device route);
+  in the frame's coordinates through K3 with the band's column origin
+  (the JAX factory warps with the gather and lets XLA partition it);
 - EGVSR's scene-cut test, a mean over the whole frame.
 
 Tensors go in on any device (host frames are uploaded band by band
@@ -55,7 +55,7 @@ import torch
 
 from ..models import bsvd, egvsr, rrdbnet, srvgg
 from ..ops import space_to_depth
-from ..ops.warp import backward_warp_columns
+from ..ops.warp import backward_warp_columns, backward_warp_fast
 from ..upscale.jit_cache import MAX_GRAPHS, GraphPool, ShapeCache, _flatten, _leaf_sig
 from ..upscale.steps import (
     UpscaleSpec,
@@ -566,8 +566,10 @@ def make_sharded_egvsr_step(
     (out_u8, new_state)`, W split over every device of the mesh (a
     recurrent stream has no batch to split), `halo` LR columns each side
     (None: egvsr_radius of cfg).  The state (lr_prev, hr_prev) enters
-    whole or as a ShardedState and leaves as a ShardedState.  The HR warp
-    is the plain gather (_sharded_egvsr_body): no K3 launch.
+    whole or as a ShardedState and leaves as a ShardedState.  Each band
+    warps its columns of the whole previous HR frame through K3
+    (`backward_warp_fast` with the band's column origin): one launch a
+    band and frame on a CUDA tensor, the plain gather on a CPU one.
 
     Each band runs two cached phases (`fn.band_caches`): "flow" (the LR
     frame, the HR flow and the band's share of the scene-cut sum) and
@@ -591,10 +593,8 @@ def make_sharded_egvsr_step(
         return lr, f, _centre((lr.float() - lr_prev.float()).abs(), band, frame_w).sum()
 
     def sr(p, part, lr, f, whole, skip, lo, bspec):
-        warped = backward_warp_columns(whole, f, s * lo)
-        if skip is not None:
-            warped = torch.where(skip, whole.narrow(2, s * lo, f.shape[2]), warped)
-        hr = egvsr.srnet_apply(p["srnet"], lr, space_to_depth(warped, s).to(lr.dtype))
+        hr_tran = backward_warp_fast(whole, f, s2d_out=s, skip=skip, col0=s * lo).to(lr.dtype)
+        hr = egvsr.srnet_apply(p["srnet"], lr, hr_tran)
         return _emit(_resize_to_output(torch.clamp(hr.float(), 0.0, 1.0), bspec), bspec), (lr, hr)
 
     phases = (caches.phase("flow", flow, fixed_argnums=(0,)),
@@ -647,8 +647,9 @@ def _sharded_egvsr_body(reps: dict, sh: ShardedState, frame, spec: UpscaleSpec, 
     """egvsr_upscale_step on the bands: each band's LR frame and flow at
     its own width, the previous HR frame gathered whole to every device,
     each band's columns warped from it in the frame's coordinates (border
-    clamp at the frame's edges) by the plain gather warp, the scene-cut
-    test over the whole frame, then SRNet and the emission per band."""
+    clamp at the frame's edges) by K3 with the band's column origin, the
+    scene-cut test over the whole frame, then SRNet and the emission per
+    band."""
     flow, sr = phases
     bands = sh.bands
     dev0 = bands[0].device

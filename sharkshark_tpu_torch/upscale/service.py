@@ -706,8 +706,8 @@ class EgvsrUpscalerService(BaseUpscalerService):
     device: 'cuda' (default) or 'cpu'; a CUDA device on a host without
     CUDA raises here, at construction.  mesh: a parallel.Mesh of devices
     of that kind: each frame's step then runs W-sharded over every device of
-    the mesh (make_sharded_egvsr_step), whose HR warp is the plain gather
-    (no K3 launch).  cut_threshold: the scene-cut skip
+    the mesh (make_sharded_egvsr_step), each band's HR warp through K3
+    (one launch a band and frame).  cut_threshold: the scene-cut skip
     (egvsr.frnet_step), on by default for a live stream.  chunked: run
     each micro-batch as one egvsr_upscale_chunk (FNet batched over the
     micro-batch) instead of one egvsr_upscale_step per frame (off with a

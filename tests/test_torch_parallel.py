@@ -397,11 +397,21 @@ def eg_params():
 
 
 @pytest.mark.parametrize("pix_fmt,cut", [("rgb24", None), ("yuv420p", None), ("rgb24", 0.12)])
-def test_sharded_egvsr_step_matches_jax(eg_params, pix_fmt, cut):
+def test_sharded_egvsr_step_matches_jax(eg_params, pix_fmt, cut, monkeypatch):
     """The W-sharded EGVSR step (bands of 32 LR columns over 8 devices,
-    the previous HR frame gathered whole, the plain gather warp), three
-    frames with the state round-tripping sharded; with the scene-cut
-    test, the third frame is a cut."""
+    the previous HR frame gathered whole, each band's columns warped from
+    it through K3's operator with the band's origin: one call a band and
+    frame, on a contiguous flow), three frames with the state
+    round-tripping sharded; with the scene-cut test, the third frame is a
+    cut."""
+    calls = []
+    fast = sharded_mod.backward_warp_fast
+
+    def spy(x, flow, **kw):
+        calls.append((kw.get("col0"), flow.shape[2], x.shape[2], flow.is_contiguous(), kw.get("skip") is not None))
+        return fast(x, flow, **kw)
+
+    monkeypatch.setattr(sharded_mod, "backward_warp_fast", spy)
     jp, tp = eg_params
     jspec, tspec = _specs(EG_LR, EG_OUT, pix_fmt)
     frames = _frames(7, (3, *EG_LR, 3))
@@ -420,6 +430,9 @@ def test_sharded_egvsr_step_matches_jax(eg_params, pix_fmt, cut):
         so, ss = steps.egvsr_upscale_step(tp, ss, torch.from_numpy(frames[i : i + 1]), tspec,
                                           cut_threshold=cut, cfg=EG_T)
         assert all(b.hi - b.lo < EG_LR[1] for b in ts.bands), "the halos cover the whole frame"
+        sc = EG_T.scale
+        assert calls == [(sc * b.lo, sc * (b.hi - b.lo), sc * EG_LR[1], True, cut is not None) for b in ts.bands]
+        calls.clear()
         _u8_close(to, jo)
         _u8_close(to, so)
     _leaves_close(_port_state(ts), tuple(np.asarray(x) for x in js))

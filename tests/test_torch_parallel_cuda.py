@@ -1,8 +1,9 @@
 """The multi-device serving paths on cards: K1 and K4 against their plain
 versions on every visible card (their shared-memory opt-in is made once
 per device, so the first launch on a second card must work too), and
-the width-sharded denoise step on a mesh of cards against the
-single-device step.
+the width-sharded denoise and EGVSR steps on a mesh of cards against the
+single-device steps (EGVSR's bands warp through K3 with a column origin,
+one launch a band and frame).
 
 These tests need NVIDIA GPUs and nvcc, so they carry the `cuda` marker
 and skip on a host without CUDA; the per-card test skips below two
@@ -21,9 +22,10 @@ import pytest
 import torch
 
 from sharkshark_tpu_torch import parallel as par
-from sharkshark_tpu_torch.models import bsvd, srvgg
+from sharkshark_tpu_torch.models import bsvd, egvsr, srvgg
 from sharkshark_tpu_torch.ops import conv_stack as cs
 from sharkshark_tpu_torch.ops import tsm_conv as tsm
+from sharkshark_tpu_torch.ops import warp as wp
 from sharkshark_tpu_torch.upscale import steps
 
 pytestmark = pytest.mark.cuda
@@ -98,5 +100,42 @@ def test_sharded_denoise_on_cards_matches_one_device(cards):
             torch.cuda.synchronize()
             bands = len(sharded.bands)
             assert sum(tsm.launches_by_device.get(d.index, 0) for d in set(devices)) == k1 + 16 * (1 + bands)
+            mse = ((got.cpu().double() - want.cpu().double()) ** 2).mean().item()
+            assert mse == 0 or 10 * np.log10(255.0**2 / mse) >= 40.0, mse
+
+
+def _panning_frames(n: int, h: int, w: int, seed: int) -> np.ndarray:
+    """n uint8 frames of a smooth random scene panning 2 px a frame."""
+    rng = np.random.default_rng(seed)
+    coarse = torch.from_numpy(rng.random((h // 16 + 2, (w + 2 * n) // 16 + 2, 3), dtype=np.float32))
+    scene = torch.nn.functional.interpolate(coarse.permute(2, 0, 1)[None], scale_factor=16, mode="bicubic",
+                                            align_corners=False)[0].permute(1, 2, 0).clamp(0, 1).numpy()
+    return np.stack([(scene[:h, 2 * i : 2 * i + w] * 255).astype(np.uint8) for i in range(n)])
+
+
+def test_sharded_egvsr_on_cards_matches_one_device(cards):
+    """FRNet (nf 16, nb 1) W over four bands (on distinct cards where
+    there are four, else the first card four times), each band's HR warp
+    through K3 with its column origin: one launch a band and frame.
+    Three panning frames with the state carried sharded, the third a
+    scene cut, against the single-device step (its warp through K3)."""
+    devices = (cards if len(cards) >= 4 else cards[:1] * 4)[:4]
+    dev = devices[0]
+    cfg = egvsr.EGVSRConfig(nf=16, nb=1)
+    params = par._bands.tree_map(lambda t: t.to(dev, torch.bfloat16),
+                                 egvsr.init_params(torch.Generator().manual_seed(0), cfg))
+    spec = steps.UpscaleSpec(lr_shape=(64, 512), output_shape=(128, 1024))
+    fn = par.make_sharded_egvsr_step(spec, par.make_mesh(devices=devices, spatial=4), cfg, cut_threshold=0.12)
+    frames = _panning_frames(3, 64, 512, seed=4)
+    frames[2] = 255 - frames[2]
+    state = sharded = egvsr.init_recurrent_state(1, 64, 512, cfg, torch.bfloat16, dev)
+    with torch.inference_mode():
+        for i in range(3):
+            frame = torch.from_numpy(frames[i : i + 1])
+            want, state = steps.egvsr_upscale_step(params, state, frame.to(dev), spec, cut_threshold=0.12, cfg=cfg)
+            before = wp.launches
+            got, sharded = fn(params, sharded, frame)
+            torch.cuda.synchronize()
+            assert wp.launches == before + len(sharded.bands) == before + 4
             mse = ((got.cpu().double() - want.cpu().double()) ** 2).mean().item()
             assert mse == 0 or 10 * np.log10(255.0**2 / mse) >= 40.0, mse

@@ -3,8 +3,10 @@ JAX package's, on the CPU, from the same numpy inputs: the plain
 `backward_warp` against JAX `backward_warp` (the gather), and the plain
 K3 function against the Pallas kernel `banded_backward_warp` run in
 interpret mode, in both output layouts; the skip flag; N = 2 and shapes
-the Pallas kernel refuses.  The CUDA kernel itself is held against the
-plain version on the card (tests/test_torch_warp_cuda.py, chip_smoke.py).
+the Pallas kernel refuses; a column origin (a width-sharded step's band
+of the whole frame's warp) against the JAX whole-frame warp sliced to
+the band.  The CUDA kernel itself is held against the plain version on
+the card (tests/test_torch_warp_cuda.py, chip_smoke.py).
 
 Tolerances: the plain version repeats the JAX arithmetic step by step in
 float32, but XLA's CPU backend rounds the normalised grid differently in
@@ -167,12 +169,88 @@ def test_cpu_tensor_never_touches_the_build(monkeypatch):
     before = wp.launches
     y = wp.backward_warp_fast(_t(x), _t(flow), s2d_out=4)
     assert y.shape == (1, 2, 3, 48) and wp.launches == before
+    band = wp.backward_warp_fast(_t(x), _t(flow[:, :, 4:12]), s2d_out=4, col0=4)
+    assert band.shape == (1, 2, 2, 48) and wp.launches == before
 
 
 def test_other_devices_raise_instead_of_falling_back():
     x = torch.empty((1, 8, 8, 3), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         wp.backward_warp_fast(x, torch.empty((1, 8, 8, 2), device="meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        wp.backward_warp_fast(x, torch.empty((1, 8, 4, 2), device="meta"), s2d_out=4, col0=4)
+
+
+# (H, W, col0, W', s2d_out): origins at 0, inside the frame and flush with
+# its right edge, ragged widths, the whole frame
+BANDS = [(12, 37, 0, 13, 0), (12, 37, 11, 13, 1), (12, 37, 24, 13, 0), (12, 38, 10, 14, 2),
+         (12, 38, 24, 14, 2), (16, 52, 0, 20, 4), (16, 52, 16, 20, 4), (16, 52, 32, 20, 4),
+         (16, 52, 0, 52, 4)]
+
+
+def _band_flow(kind, rng, h, w, col0, wo):
+    """A whole-frame flow (1, h, w, 2): "near" moves a few px, so most
+    samples stay in the band; "beyond" moves every sample a band's width
+    or more (left of a band right of the frame's centre, right of the
+    others), out of the band but inside the frame; "past" sends samples
+    past the frame's edges, where they clamp."""
+    if kind == "near":
+        return _smooth_flow(rng, 1, h, w, 3.0)
+    if kind == "beyond":
+        flow = _smooth_flow(rng, 1, h, w, 2.0).copy()
+        flow[..., 0] += -(wo + 2.5) if col0 + wo / 2 > w / 2 else wo + 2.5
+        return flow
+    return rng.uniform(-2.0 * w, 2.0 * w, (1, h, w, 2)).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["near", "beyond", "past"])
+@pytest.mark.parametrize("h,w,col0,wo,s2d", BANDS, ids=str)
+def test_column_origin_matches_columns_and_jax_whole_frame(h, w, col0, wo, s2d, kind):
+    """The operator's CPU route with an origin: columns [col0, col0 + W')
+    of the whole frame's warp, bit for bit backward_warp_columns (then the
+    skip's select and space_to_depth), and within TIGHT of the JAX
+    whole-frame backward_warp sliced to the band; with the skip set, the
+    band's columns of x exactly."""
+    rng = np.random.default_rng(h * w + col0 + s2d)
+    x = rng.random((1, h, w, 3), dtype=np.float32)
+    flow = _band_flow(kind, rng, h, w, col0, wo)
+    band = flow[:, :, col0 : col0 + wo]
+    tx, tf = _t(x), _t(band)
+
+    def s2d_of(y):
+        return space_to_depth(y, s2d) if s2d else y
+
+    cols = wp.backward_warp_columns(tx, tf, col0)
+    got = wp.backward_warp_fast(tx, tf, s2d_out=s2d, col0=col0)
+    assert torch.equal(got, s2d_of(cols))
+    assert torch.equal(wp.backward_warp_fast(tx, tf, s2d_out=s2d, skip=torch.tensor([False]), col0=col0), got)
+    skipped = wp.backward_warp_fast(tx, tf, s2d_out=s2d, skip=torch.tensor([True]), col0=col0)
+    assert torch.equal(skipped, s2d_of(tx[:, :, col0 : col0 + wo]))
+    want = np.asarray(jbackward_warp(jnp.asarray(x), jnp.asarray(flow)))[:, :, col0 : col0 + wo]
+    if s2d:
+        want = np.asarray(jspace_to_depth(jnp.asarray(want), s2d))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TIGHT)
+    if kind != "near":
+        # the samples do leave the band
+        u = col0 + np.arange(wo)[None, None, :] + band[..., 0]
+        assert ((u < col0) | (u > col0 + wo - 1)).mean() > 0.5
+
+
+@pytest.mark.parametrize("col0,wo,s2d,match", [
+    (-1, 8, 0, "must lie in"),      # an origin left of the frame
+    (9, 8, 0, "must lie in"),       # a band past the frame's right edge
+    (0, 0, 0, "must lie in"),       # an empty band
+    (4, 10, 4, "must divide"),      # a band width that s2d_out does not divide
+    (4, 8, 3, "must divide"),       # nor H
+])
+def test_column_origin_refusals(col0, wo, s2d, match):
+    x, flow = _case("smooth3", 1, 8, 16, seed=8)
+    before = wp.launches
+    with pytest.raises(ValueError, match=match):
+        wp.backward_warp_fast(_t(x), _t(np.zeros((1, 8, wo, 2), np.float32)), s2d_out=s2d, col0=col0)
+    with pytest.raises(ValueError, match=match):
+        wp.backward_warp_plain(_t(x), _t(np.zeros((1, 8, wo, 2), np.float32)), s2d_out=s2d, col0=col0)
+    assert wp.launches == before
 
 
 def test_bench_bound_at_the_egvsr_shape():
@@ -188,3 +266,32 @@ def test_bench_bound_at_the_egvsr_shape():
     assert b["bound_by"] == "bytes" and round(b["bound_ms"], 4) == 0.0704
     flops, nbytes = bench_backward_warp.work(skipped=True)
     assert flops == 0 and nbytes == 2 * (2880 * 5120 * 3 * 2) + 1
+
+
+def test_bench_bound_of_a_band():
+    """tools/bench_backward_warp.py's work of a band: out and the band's
+    flow once each, and x's window that the flow's taps reach once: a
+    zero flow reads the band's columns and the right neighbours' column,
+    a flow past the top-left corner a 2x2 window."""
+    shape = (1, 16, 64, 3)
+    out, flow = 16 * 20 * 3 * 2, 16 * 20 * 2 * 4
+    flops, nbytes = bench_backward_warp.band_work(shape, 16, torch.zeros((1, 16, 20, 2)))
+    assert flops == 15 * 16 * 20 * 3 and nbytes == out + 16 * 21 * 3 * 2 + flow + 1
+    _, nbytes = bench_backward_warp.band_work(shape, 16, torch.full((1, 16, 20, 2), -1e4))
+    assert nbytes == out + 2 * 2 * 3 * 2 + flow + 1
+
+
+def test_bench_bands_are_the_mesh_egvsr_bands():
+    """bench_backward_warp.BANDS are the HR columns of the bands that
+    make_sharded_egvsr_step cuts a 720p frame into on a 1x4 mesh with the
+    production FRNet (nb 10), as the service builds its spec."""
+    from fractions import Fraction
+
+    from sharkshark_tpu_torch.models import egvsr
+    from sharkshark_tpu_torch.parallel import _bands, sharded
+    from sharkshark_tpu_torch.upscale.steps import UpscaleSpec
+
+    spec, frame_w = UpscaleSpec(lr_shape=(720, 1280), output_shape=(1440, 2560)), 1280
+    a = _bands.alignment(8, [(Fraction(1280, frame_w), 1), *sharded._out_constraints(spec, frame_w)])
+    bands = _bands.split_width(frame_w, [torch.device("cpu")] * 4, a, sharded.egvsr_radius(egvsr.PRODUCTION))
+    assert tuple((4 * b.lo, 4 * (b.hi - b.lo)) for b in bands) == bench_backward_warp.BANDS

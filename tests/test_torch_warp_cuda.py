@@ -2,9 +2,11 @@
 (K3) against its plain PyTorch version on the card, at shapes beyond the
 EGVSR path's (ragged H and W, widths that no pixel group divides, N = 2,
 C = 1..4, float32 and bf16 x and flow, the NHWC, s2d_out=2 and s2d_out=4
-layouts, the skip flag, every tap on the tensor's last pixel), and the
-wrapper's refusals.  chip_smoke.py holds the kernel at the path's own
-shape, (1, 2880, 5120, 3) bf16.
+layouts, the skip flag, every tap on the tensor's last pixel), a column
+origin (a band of the whole frame's warp, as the width-sharded EGVSR step
+asks for), and the wrapper's refusals.  chip_smoke.py holds the kernel at
+the path's own shapes, (1, 2880, 5120, 3) bf16 and the 1x4 mesh's bands
+of it.
 
 These tests need an NVIDIA GPU and nvcc, so they carry the `cuda` marker
 and skip on a host without CUDA.  On the card, without the JAX package:
@@ -16,7 +18,9 @@ through the normalised grid as the JAX package does; at these widths the
 two sample points differ by a few 1e-5 px, so float32 outputs agree to
 atol 1e-4 on values in [0, 1).  A bf16 output may then round one ulp the
 other way: atol 2^-7, two bf16 ulps below 1.0.  The skip copies x
-exactly.
+exactly.  A band's warp (an origin) is held to K3's bound, 2^-8 in bf16
+(one ulp below 1.0), and equals the whole frame's kernel output at its
+columns bit for bit.
 """
 
 import pytest
@@ -27,6 +31,7 @@ from sharkshark_tpu_torch.ops import warp as wp
 
 pytestmark = pytest.mark.cuda
 ATOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-7}
+BAND_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-8}
 
 
 @pytest.fixture
@@ -171,4 +176,76 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(dev):
         wp.backward_warp_fast(x, flow, skip=torch.ones(1, device=dev))
     with pytest.raises(ValueError, match="is on"):
         wp.backward_warp_fast(x, flow.cpu())
+    assert wp.launches == before
+
+
+# origins of a 20-column band in a 52-wide frame: at 0, inside, and flush
+# with the frame's right edge
+ORIGINS = {"zero": 0, "middle": 16, "flush": 32}
+
+
+@pytest.mark.parametrize("origin", list(ORIGINS))
+@pytest.mark.parametrize("c,s2d", [(1, 0), (2, 1), (3, 4), (4, 2), (3, 0), (1, 4)])
+@pytest.mark.parametrize("fdt", DTYPES)
+@pytest.mark.parametrize("xdt", DTYPES)
+def test_column_origin_matches_plain(dev, xdt, fdt, c, s2d, origin):
+    """Columns [col0, col0 + 20) of a 52-wide frame's warp along a flow of
+    up to +-30 px, which leaves the band and the frame: against the plain
+    version within BAND_ATOL, and the whole frame's kernel output at
+    those columns bit for bit."""
+    col0, wo = ORIGINS[origin], 20
+    x, flow = _inputs(dev, 2, 16, 52, c, xdt, fdt, 30.0, seed=100 * c + 10 * s2d + col0)
+    band = flow[:, :, col0 : col0 + wo].contiguous()
+    before = wp.launches
+    got = wp.backward_warp_fast(x, band, s2d_out=s2d, col0=col0)
+    torch.cuda.synchronize()
+    assert wp.launches == before + 1
+    want = wp.backward_warp_plain(x, band, s2d_out=s2d, col0=col0)
+    assert got.shape == want.shape and got.dtype == xdt
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=BAND_ATOL[xdt])
+    whole = wp.backward_warp_fast(x, flow)[:, :, col0 : col0 + wo]
+    assert torch.equal(got, space_to_depth(whole, s2d) if s2d else whole)
+
+
+@pytest.mark.parametrize("xdt", DTYPES)
+@pytest.mark.parametrize("c", [1, 2, 3, 4])
+@pytest.mark.parametrize("s2d", [0, 2, 4])
+def test_band_at_the_right_edge_reads_the_last_pixel(dev, xdt, c, s2d):
+    """A band flush with the frame's right edge, along flows that send
+    every tap to the tensor's last pixel, or a pixel left of it (the
+    guarded span loads near x's end), with the skip unset and set (then
+    x's columns, exactly)."""
+    n, h, w, col0, wo = 2, 8, 28, 16, 12
+    x, _ = _inputs(dev, n, h, w, c, xdt, torch.float32, 0.0, seed=c + s2d)
+    u = torch.arange(col0, w, device=dev, dtype=torch.float32)[None, None, :]
+    v = torch.arange(h, device=dev, dtype=torch.float32)[None, :, None]
+    for dx, dy in ((1e4 - u, 1e4 - v), (w - 1.5 - u, h - 1.25 - v)):
+        flow = torch.stack([dx.expand(n, h, wo), dy.expand(n, h, wo)], dim=-1).contiguous()
+        for skip in (None, torch.tensor([False], device=dev), torch.tensor([True], device=dev)):
+            got = wp.backward_warp_fast(x, flow, s2d_out=s2d, skip=skip, col0=col0)
+            torch.cuda.synchronize()
+            want = wp.backward_warp_plain(x, flow, s2d_out=s2d, skip=skip, col0=col0)
+            if skip is not None and bool(skip):
+                assert torch.equal(got, want)
+            else:
+                torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=BAND_ATOL[xdt])
+
+
+@pytest.mark.parametrize("xdt", DTYPES)
+@pytest.mark.parametrize("s2d", [0, 4])
+def test_origin_zero_is_the_call_without_one(dev, xdt, s2d):
+    x, flow = _inputs(dev, 1, 16, 40, 3, xdt, torch.bfloat16, 20.0, seed=11)
+    assert torch.equal(wp.backward_warp_fast(x, flow, s2d_out=s2d, col0=0), wp.backward_warp_fast(x, flow, s2d_out=s2d))
+
+
+def test_wrapper_refuses_a_band_outside_x(dev):
+    x, flow = _inputs(dev, 1, 8, 16, 3, torch.bfloat16, torch.bfloat16, 4.0, seed=9)
+    band = flow[:, :, :8].contiguous()
+    before = wp.launches
+    with pytest.raises(ValueError, match="must lie in"):
+        wp.backward_warp_fast(x, band, col0=9)
+    with pytest.raises(ValueError, match="must lie in"):
+        wp.backward_warp_fast(x, band, col0=-1)
+    with pytest.raises(ValueError, match="must divide"):
+        wp.backward_warp_fast(x, flow[:, :, :6].contiguous(), s2d_out=4, col0=2)
     assert wp.launches == before
